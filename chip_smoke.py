@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card.
+"""Drive the PyTorch/CUDA port's paths on one CUDA card.
 
 Usage (from the repository root, on a machine with an NVIDIA H100)::
 
@@ -7,25 +7,39 @@ Usage (from the repository root, on a machine with an NVIDIA H100)::
 
 Phases, each of which raises (exit code != 0) on a failed check:
 
-1. setup: card name and power limit, versions, TF32 off, build the CUDA
-   kernels from ``imageanalysis3_tpu_torch/csrc`` (one nvcc per source,
-   started together);
-2. kernels: each kernel against its plain PyTorch version at the shapes of
-   the main path (the pyramid classifier on the rendered 60x2048x2048
-   scene; the LM fit on round 0's 2048 spots x 512 pixels x 8 iterations
-   and on a Jacobi refit round's 512 warm-started spots with the
-   neighbours' reconstructions subtracted), with CUDA-event timings of
-   kernel and plain version over fresh inputs;
-3. main path: ``FovPipeline.process_round`` at bench.py's configuration
-   (1800 planted spots, th_seed 300, 2048 seed capacity), one warm round
-   and 4 timed rounds; both kernels must launch in every round, and every
-   round's fitted centres must meet bench.py's accuracy gate
-   (median_centroid_err_px <= 0.02 over the first 500 truths).
+1. setup: card name and power limit, versions, TF32 off, build the five
+   CUDA kernels from ``imageanalysis3_tpu_torch/csrc`` (one nvcc per
+   source, started together);
+2. kernels: each kernel against its plain PyTorch version on the rendered
+   60x2048x2048 bench scene (the pyramid classifier; the exact classifier,
+   the dual x+y blur and the level stencil, each also through its
+   run-time-radius code on a small stack; the LM fit on round 0's 2048
+   spots x 512 pixels x 8 iterations and on a Jacobi refit round's 512
+   warm-started spots), with CUDA-event timings of kernel and plain
+   version over fresh inputs;
+3. slice 1's main path: ``FovPipeline.process_round`` at bench.py's
+   configuration (pyramid classifier, 1800 planted spots, th_seed 300,
+   2048 seed capacity), one warm round and 4 timed rounds; seed_pyramid
+   and lm_fit must launch in every round, and every round's fitted centres
+   must meet bench.py's accuracy gate (median_centroid_err_px <= 0.02 over
+   the first 500 truths);
+4. the dual-blur path (``SeedConfig(pyramid_bg=False, filt_size=5)`` on a
+   30x2048x2048 stack, 2 timed rounds under the same gate; dual_blur must
+   launch in each) and the level-stencil path (``dual_gaussian_blur`` then
+   ``level_stencil`` on one corrected stack, held against the plain
+   stencil on the same blurs);
+5. the end-to-end path of bench_e2e.py with the exact classifier: 20
+   rounds of 3-channel 60x2048x2048 stacks rendered on the card, seeded by
+   seed_classify on every data channel, fitted, then decoded by
+   ``DNAMerfishDecoder`` into 300 homolog region traces; >= 285 regions
+   assigned, median trace error <= 1.25x the planted-jitter floor, median
+   drift error <= 0.1 px.
 
 The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
 record goes to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds one
-round under torch.profiler (device time by kernel, device busy share).
+slice-1 round under torch.profiler (device time by kernel, device busy
+share).
 """
 
 from __future__ import annotations
@@ -48,6 +62,10 @@ ROUNDS = 4
 TH_SEED = 300.0
 N_LVL = 10
 EDGE = 2
+#: kernels of slice 1's main path (pyramid classifier)
+PYRAMID_PATH = ("seed_pyramid", "lm_fit")
+#: the dual-blur path's stack: the package's DEFAULT_IMAGE_SIZE
+DUAL_SHAPE = (30, 2048, 2048)
 
 
 def _smi() -> str:
@@ -90,6 +108,306 @@ def _events_ms(torch, fn, inputs, queue_ahead: bool):
     torch.cuda.synchronize()
     return statistics.median(ev[i].elapsed_time(ev[i + 1])
                              for i in range(len(inputs)))
+
+
+def _check_accuracy(label, res, centers):
+    """bench.py's gate on channel 0 of a RoundResult: median centroid error
+    over the first 500 truths matched within 1 px <= 0.02 px, and n_valid
+    >= 90% of the planted spots."""
+    need_valid = int(np.ceil(0.9 * len(centers)))
+    got = res.spots[0][res.valid[0]][:, 1:4].cpu().numpy()
+    errs = []
+    for c in centers[:500]:
+        d = np.linalg.norm(got - c, axis=1).min() if len(got) else np.inf
+        if d < 1.0:
+            errs.append(d)
+    med = float(np.median(errs)) if errs else float("nan")
+    n_val = int(res.valid[0].sum())
+    print(f"accuracy {label}: median_centroid_err_px {med:.5f} over "
+          f"{len(errs)} matched truths, n_valid {n_val}, drift "
+          f"{res.drift.cpu().numpy().round(4).tolist()} flag "
+          f"{int(res.drift_flag)}")
+    if not med <= 0.02:
+        raise AssertionError(f"{label}: median_centroid_err_px {med} > 0.02")
+    if n_val < need_valid:
+        raise AssertionError(f"{label}: n_valid {n_val} < {need_valid}")
+    return med, n_val
+
+
+def _max_abs(torch, a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def _check_seed_classify(torch, sk, inp) -> dict:
+    """seed_classify against its plain version on one input: qualification
+    agrees on > 1 - 1e-5 of voxels, qdiff within rtol 1e-4 / atol 0.05
+    where both qualify, counts within 2."""
+    qk, ck = sk.fused_seed_classify_cuda(*inp)
+    qp, cp = sk.fused_seed_classify_plain(*inp)
+    torch.cuda.synchronize()
+    fk, fp = torch.isfinite(qk), torch.isfinite(qp)
+    agree = float((fk == fp).double().mean())
+    if not agree > 1 - 1e-5:
+        raise AssertionError(f"seed_classify: qualification agrees on "
+                             f"{agree} of voxels")
+    both = fk & fp
+    if not torch.allclose(qk[both], qp[both], rtol=1e-4, atol=0.05):
+        raise AssertionError("seed_classify: qdiff differs beyond rtol 1e-4 "
+                             "/ atol 0.05")
+    dcount = abs(int(ck.sum()) - int(cp.sum()))
+    if dcount > 2:
+        raise AssertionError(f"seed_classify: counts differ by {dcount}")
+    return {"max_abs_err": _max_abs(torch, qk[both], qp[both]),
+            "agree": agree, "n_qual": int(fp.sum()),
+            "counts": (int(ck.sum()), int(cp.sum())),
+            "identical": torch.equal(qk, qp) and torch.equal(ck, cp)}
+
+
+def _check_dual_blur(torch, sk, inp) -> dict:
+    """dual_blur against its plain version: both stacks within rtol 2e-5 /
+    atol 2e-2."""
+    fk, bk = sk.dual_blur_xy_cuda(*inp)
+    fp, bp = sk.dual_blur_xy_plain(*inp)
+    torch.cuda.synchronize()
+    for name, a, b in (("fg", fk, fp), ("bg", bk, bp)):
+        if not torch.allclose(a, b, rtol=2e-5, atol=2e-2):
+            raise AssertionError(f"dual_blur: {name} differs beyond rtol "
+                                 "2e-5 / atol 2e-2")
+    return {"max_abs_err": max(_max_abs(torch, fk, fp),
+                               _max_abs(torch, bk, bp)),
+            "identical": torch.equal(fk, fp) and torch.equal(bk, bp)}
+
+
+def _check_level_stencil(torch, sk, inp) -> dict:
+    """level_stencil against its plain version: level and counts identical,
+    diff within rtol 1e-6."""
+    lk, dk, ck = sk.level_stencil_cuda(*inp)
+    lp, dp, cp = sk.level_stencil_plain(*inp)
+    torch.cuda.synchronize()
+    if not (torch.equal(lk, lp) and torch.equal(ck, cp)):
+        raise AssertionError("level_stencil: level map or counts differ "
+                             f"({int(ck.sum())} vs {int(cp.sum())} "
+                             "counted)")
+    if not torch.allclose(dk, dp, rtol=1e-6, atol=0.0):
+        raise AssertionError("level_stencil: diff differs beyond rtol 1e-6")
+    return {"max_abs_err": _max_abs(torch, dk, dp),
+            "counts": int(ck.sum()), "identical": torch.equal(dk, dp)}
+
+
+def _dual_blur_phase(torch, smi: str) -> dict:
+    """The dual-blur path: ``FovPipeline.process_round`` with
+    ``SeedConfig(pyramid_bg=False, filt_size=5)`` on a 30x2048x2048 stack
+    (the package's DEFAULT_IMAGE_SIZE) of 1800 planted spots; dual_blur must
+    launch once per round (one fit channel) and each round must meet
+    bench.py's accuracy gate.  Then the level-stencil path on one corrected
+    stack: the ``dual_gaussian_blur`` and ``level_stencil`` entry points,
+    whose counts and level map must equal the plain stencil's
+    (seeding._classify_from_blurs) on the same blurs."""
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.config import (ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches,
+                                              seed_kernels)
+    from imageanalysis3_tpu_torch.ops.seeding import _classify_from_blurs
+    from imageanalysis3_tpu_torch.pipeline import FovPipeline
+
+    dev = torch.device("cuda")
+    truth = syn.sample_spot_params(DUAL_SHAPE, N_SPOTS,
+                                   np.random.default_rng(1),
+                                   min_separation=8.0,
+                                   height_range=(400.0, 3000.0),
+                                   sigma_jitter=0.0)
+    base = syn.render_spots(DUAL_SHAPE, truth["centers"], truth["heights"],
+                            background=truth["background"], device=dev)
+    raws = [syn.noisy_uint16(base, seed=200 + k) for k in range(4)]
+    del base
+    cfg = ExperimentConfig(
+        image_size=DUAL_SHAPE,
+        seed=SeedConfig(th_seed=TH_SEED, max_num_seeds=2048,
+                        pyramid_bg=False, filt_size=5),
+        fit=FitConfig())
+    pipe = FovPipeline(cfg, n_channels=1, drift_channel_index=0,
+                       fit_channel_indices=(0,), image_shape=DUAL_SHAPE)
+    ref_im = pipe.prepare_reference(pipe.correct_reference(raws[0][None]))
+    pipe.process_round(raws[1][None], ref_im)          # warm-up
+    times, launches, acc = [], [], []
+    for k, raw in enumerate(raws[2:]):
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        res = pipe.process_round(raw[None], ref_im)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = kernel_launches()
+        launches.append(counts)
+        if counts["dual_blur"] != 1 or counts["lm_fit"] < 1:
+            raise AssertionError(f"dual-blur path round {k}: launches "
+                                 f"{counts}")
+        if counts["seed_classify"] or counts["seed_pyramid"]:
+            raise AssertionError(f"dual-blur path round {k} ran another "
+                                 f"classifier: {counts}")
+        acc.append(_check_accuracy(f"dual-blur round {k}", res,
+                                   truth["centers"]))
+
+    s = cfg.seed
+    corr = pipe.correct_one(raws[2], 0)
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    fg, bg = seed_kernels.dual_gaussian_blur(corr, s.gfilt_size,
+                                             s.background_gfilt_size)
+    level, diff, counts_l = seed_kernels.level_stencil(fg, bg, TH_SEED, N_LVL,
+                                                       EDGE)
+    torch.cuda.synchronize()
+    lvl_launches = kernel_launches()
+    if lvl_launches["dual_blur"] != 1 or lvl_launches["level_stencil"] != 1:
+        raise AssertionError(f"level-stencil path launches {lvl_launches}")
+    q, c = _classify_from_blurs(fg, bg, TH_SEED, 0, DUAL_SHAPE[1], DUAL_SHAPE,
+                                3, EDGE, N_LVL)
+    in_budget = seed_kernels._levels(q, TH_SEED, N_LVL) < N_LVL
+    if not (torch.equal(counts_l, c) and torch.equal(level < N_LVL, in_budget)
+            and torch.equal(diff, fg - bg)):
+        raise AssertionError("level-stencil path: level map or counts differ "
+                             "from the plain stencil on the same blurs")
+    sec = statistics.median(times)
+    print(f"dual-blur path: {sec:.4f} s/stack (rounds "
+          f"{[round(t, 4) for t in times]}), launches per round {launches}; "
+          f"level-stencil path: {int(counts_l.sum())} voxels counted, equal "
+          f"to the plain stencil, launches {lvl_launches}  [{smi}]")
+    return {"shape": DUAL_SHAPE, "seconds_per_stack": sec,
+            "round_seconds": times, "launches_per_round": launches,
+            "accuracy": acc, "level_stencil_launches": lvl_launches,
+            "level_stencil_counted": int(counts_l.sum())}
+
+
+def _e2e_phase(torch, smi: str) -> dict:
+    """bench_e2e.py's end-to-end path with the exact classifier: 20 rounds
+    of 3-channel 60x2048x2048 stacks (2 data channels + beads, rendered on
+    the card one round at a time), ``FovPipeline.process_round`` on each,
+    then ``DNAMerfishDecoder.decode`` of all candidate spots into 300
+    homolog region traces.  seed_classify must launch on every data
+    channel of every round and lm_fit with it; >= 285 of 300 regions
+    assigned; median trace error <= 1.25x the planted-jitter floor (the
+    error of the mean of each region's planted, jittered spots); median
+    drift error <= 0.1 px."""
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.config import (ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.decode import DNAMerfishDecoder
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+    from imageanalysis3_tpu_torch.pipeline import FovPipeline
+
+    scene = syn.make_e2e_scene()
+    n_data = scene.n_data_ch
+    cfg = ExperimentConfig(
+        image_size=scene.shape,
+        seed=SeedConfig(th_seed=300.0, max_num_seeds=4096, pyramid_bg=False),
+        fit=FitConfig())
+    pipe = FovPipeline(cfg, n_channels=n_data + 1, drift_channel_index=n_data,
+                       fit_channel_indices=tuple(range(n_data)),
+                       image_shape=scene.shape)
+    ims = scene.round_stack(0)
+    ref_im = pipe.prepare_reference(pipe.correct_reference(ims))
+    pipe.process_round(ims, ref_im)                    # warm-up
+    del ims
+    t_render, t_proc, drift_errs, launches = [], [], [], []
+    all_spots, all_bits = [], []
+    for r in range(scene.n_rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ims = scene.round_stack(r)
+        torch.cuda.synchronize()
+        t_render.append(time.perf_counter() - t0)
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        res = pipe.process_round(ims, ref_im)
+        torch.cuda.synchronize()
+        t_proc.append(time.perf_counter() - t0)
+        counts = kernel_launches()
+        launches.append(counts)
+        if counts["seed_classify"] != n_data or counts["lm_fit"] < n_data:
+            raise AssertionError(f"e2e round {r}: launches {counts}")
+        drift_errs.append(float(np.linalg.norm(
+            res.drift.cpu().numpy() + scene.drifts[r])))
+        spots, valid = res.spots.cpu().numpy(), res.valid.cpu().numpy()
+        for ci in range(n_data):
+            all_spots.append(spots[ci][valid[ci]])
+            # codebook bit columns are 1-based ("1".."40")
+            all_bits.append(np.full(int(valid[ci].sum()), r * n_data + ci + 1))
+        del ims, res
+    spots = np.concatenate(all_spots).astype(np.float32)
+    bits = np.concatenate(all_bits)
+
+    dec = DNAMerfishDecoder(scene.codebook, pair_search_radius=250.0,
+                            keep_ratio_th=0.2)
+    t0 = time.perf_counter()
+    dec.decode(spots, bits)
+    t_decode_first = time.perf_counter() - t0
+    first_stages = dict(dec.stage_seconds)
+    t0 = time.perf_counter()
+    out = dec.decode(spots, bits)
+    t_decode = time.perf_counter() - t0
+    if out is None:
+        raise AssertionError("e2e: the keep-ratio gate refused the cell")
+
+    px = np.asarray(syn.E2E_PIXEL_SIZE_NM)
+    n_chr = len(set(scene.codebook["chr"]))
+    n_h = 2
+    errs, floor, n_assigned = [], [], 0
+    for c in range(n_chr):
+        for h in range(n_h):
+            floor.extend(np.linalg.norm(
+                (scene.region_spots[(c, h)].mean(axis=1)
+                 - scene.truth[(c, h)]) * px, axis=1).tolist())
+        res = out.get(f"chr{c + 1}")
+        if res is None:
+            continue
+        zxys, ok = res.zxys.cpu().numpy(), res.zxys_valid.cpu().numpy()
+        t_nm = np.stack([scene.truth[(c, h)] * px for h in range(n_h)])
+        best = None
+        for perm in ((0, 1), (1, 0)):
+            d = np.linalg.norm(zxys - t_nm[list(perm)], axis=-1)
+            tot = np.nansum(np.where(ok, d, np.nan))
+            if best is None or tot < best[0]:
+                best = (tot, d)
+        errs.extend(best[1][ok].tolist())
+        n_assigned += int(ok.sum())
+    n_regions = len(floor)
+    med_err = float(np.median(errs)) if errs else float("nan")
+    med_floor = float(np.median(floor))
+    med_drift = float(np.median(drift_errs))
+    sec = statistics.median(t_proc)
+    print(f"e2e: {sec:.4f} s/round (median of {len(t_proc)} rounds, render "
+          f"{statistics.median(t_render):.4f} s/round excluded), decode "
+          f"{t_decode:.3f} s (tuples {dec.stage_seconds['tuples']:.3f}, "
+          f"homolog {dec.stage_seconds['homolog']:.3f}; first call "
+          f"{t_decode_first:.3f}), {len(spots)} candidate spots, regions "
+          f"assigned {n_assigned}/{n_regions}, median trace error "
+          f"{med_err:.2f} nm (planted-jitter floor {med_floor:.2f} nm, "
+          f"ratio {med_err / med_floor:.3f}), median drift error "
+          f"{med_drift:.4f} px, launches per round {launches[0]}  [{smi}]")
+    if n_assigned < 285:
+        raise AssertionError(f"e2e: {n_assigned} of {n_regions} regions "
+                             "assigned (< 285)")
+    if not med_err <= 1.25 * med_floor:
+        raise AssertionError(f"e2e: median trace error {med_err} nm > 1.25 x "
+                             f"the planted-jitter floor {med_floor} nm")
+    if not med_drift <= 0.1:
+        raise AssertionError(f"e2e: median drift error {med_drift} px > 0.1")
+    return {"seconds_per_round": sec, "round_seconds": t_proc,
+            "render_seconds": t_render, "decode_seconds": t_decode,
+            "decode_stage_seconds": dict(dec.stage_seconds),
+            "decode_first_call_seconds": t_decode_first,
+            "decode_first_stage_seconds": first_stages,
+            "candidate_spots": int(len(spots)),
+            "regions_assigned": n_assigned, "regions_total": n_regions,
+            "median_trace_err_nm": med_err,
+            "planted_jitter_floor_nm": med_floor,
+            "median_drift_err_px": med_drift, "drift_errs_px": drift_errs,
+            "launches_per_round": launches,
+            "seed_classify_launches": sum(c["seed_classify"]
+                                          for c in launches)}
 
 
 def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
@@ -266,6 +584,68 @@ def main(argv=None) -> int:
           f"{int(ck.sum())} vs {int(cp.sum())}, flat plateau 0, fg radius 6 "
           f"path identical")
 
+    # the exact classifier's kernels on the same corrected stacks: the
+    # z-passed pair feeds seed_classify and dual_blur, the blurred pair
+    # level_stencil; the generic (run-time radius) code paths on a small
+    # stack with fg sigma 1.5 / bg sigma 5
+    k_bg = gaussian_kernel1d(sig_bg)
+    zpass = [seed_kernels.z_pass_pair(im, k_fg, k_bg) for im in corrected]
+    cls_in = [(fgz, bgz, k_fg, k_bg, TH_SEED, N_LVL, EDGE)
+              for fgz, bgz in zpass]
+    cls = _check_seed_classify(torch, seed_kernels, cls_in[0])
+    k_fg2, k_bg2 = gaussian_kernel1d(1.5), gaussian_kernel1d(5.0)
+    zs = seed_kernels.z_pass_pair(corrected[0][:12, :256, :256].contiguous(),
+                                  k_fg2, k_bg2)
+    cls_gen = _check_seed_classify(
+        torch, seed_kernels, (*zs, k_fg2, k_bg2, TH_SEED, N_LVL, EDGE))
+    blur_in = [(fgz, bgz, k_fg, k_bg) for fgz, bgz in zpass]
+    blur = _check_dual_blur(torch, seed_kernels, blur_in[0])
+    blur_gen = _check_dual_blur(torch, seed_kernels, (*zs, k_fg2, k_bg2))
+    lvl_in = [(*seed_kernels.dual_blur_xy_plain(*b), TH_SEED, N_LVL, EDGE)
+              for b in blur_in]
+    lvl = _check_level_stencil(torch, seed_kernels, lvl_in[0])
+    cls_ms = _events_ms(torch, seed_kernels.fused_seed_classify_cuda, cls_in,
+                        queue_ahead=True)
+    cls_plain_ms = _events_ms(torch, seed_kernels.fused_seed_classify_plain,
+                              cls_in, queue_ahead=False)
+    blur_ms = _events_ms(torch, seed_kernels.dual_blur_xy_cuda, blur_in,
+                         queue_ahead=True)
+    blur_plain_ms = _events_ms(torch, seed_kernels.dual_blur_xy_plain,
+                               blur_in, queue_ahead=False)
+    lvl_ms = _events_ms(torch, seed_kernels.level_stencil_cuda, lvl_in,
+                        queue_ahead=True)
+    lvl_plain_ms = _events_ms(torch, seed_kernels.level_stencil_plain,
+                              lvl_in, queue_ahead=False)
+    kb, kf = len(k_bg), len(k_fg)
+    # x and y passes of both stacks (k products, k-1 sums each), 26 maxima
+    # and 26 minima, the difference and two compares; 4 more per
+    # qualifying voxel for its level
+    cls_bound = _bound(4 * nvox * 3 + 4 * N_LVL,
+                       nvox * (2 * (2 * kf - 1) + 2 * (2 * kb - 1) + 55)
+                       + 4 * cls["n_qual"], peaks)
+    blur_bound = _bound(4 * nvox * 4,
+                        nvox * (2 * (2 * kf - 1) + 2 * (2 * kb - 1)), peaks)
+    # 26 maxima, 26 minima, the difference, two compares and the level's
+    # 5 (divide, subtract, multiply, ceil, clip) on every voxel
+    lvl_bound = _bound(nvox * (4 + 4 + 4 + 1) + 4 * N_LVL, nvox * 60, peaks)
+    print(f"seed_classify: PASS  qualification agreement "
+          f"{cls['agree']:.9f}, max |dqdiff| {cls['max_abs_err']:.3g}, "
+          f"counts {cls['counts'][0]} vs {cls['counts'][1]}, bit-identical "
+          f"{cls['identical']}; generic radius path bit-identical "
+          f"{cls_gen['identical']} (max |dqdiff| {cls_gen['max_abs_err']:.3g})")
+    print(f"dual_blur: PASS  max |d| {blur['max_abs_err']:.3g}, bit-identical "
+          f"{blur['identical']}; generic radius path bit-identical "
+          f"{blur_gen['identical']}")
+    print(f"level_stencil: PASS  counts {lvl['counts']}, level identical, "
+          f"max |ddiff| {lvl['max_abs_err']:.3g}")
+    print(f"kernels: seed_classify {cls_ms:.4f} ms (plain {cls_plain_ms:.4f} "
+          f"ms, bound {cls_bound[0]:.4f} ms by {cls_bound[1]}); dual_blur "
+          f"{blur_ms:.4f} ms (plain {blur_plain_ms:.4f} ms, bound "
+          f"{blur_bound[0]:.4f} ms by {blur_bound[1]}); level_stencil "
+          f"{lvl_ms:.4f} ms (plain {lvl_plain_ms:.4f} ms, bound "
+          f"{lvl_bound[0]:.4f} ms by {lvl_bound[1]})  [{smi}]")
+    del zpass, cls_in, blur_in, lvl_in, zs
+
     # LM at the main path's round-0 shapes: blocks around the seeds
     fcfg = cfg.fit
 
@@ -385,29 +765,8 @@ def main(argv=None) -> int:
     del pp, ep, lm_sets, lm_in, jac_in, pyr_in, corrected
 
     # ---- 3. main path ----------------------------------------------------
-    need_valid = int(np.ceil(0.9 * len(truth["centers"])))
-
     def check_accuracy(label, res):
-        """bench.py's gate: median centroid error over the first 500
-        truths matched within 1 px, and n_valid >= 90% of the spots."""
-        got = res.spots[0][res.valid[0]][:, 1:4].cpu().numpy()
-        errs = []
-        for c in truth["centers"][:500]:
-            d = np.linalg.norm(got - c, axis=1).min() if len(got) else np.inf
-            if d < 1.0:
-                errs.append(d)
-        med = float(np.median(errs)) if errs else float("nan")
-        n_val = int(res.valid[0].sum())
-        print(f"accuracy {label}: median_centroid_err_px {med:.5f} over "
-              f"{len(errs)} matched truths, n_valid {n_val}, drift "
-              f"{res.drift.cpu().numpy().round(4).tolist()} flag "
-              f"{int(res.drift_flag)}")
-        if not med <= 0.02:
-            raise AssertionError(f"{label}: median_centroid_err_px {med} > "
-                                 "0.02")
-        if n_val < need_valid:
-            raise AssertionError(f"{label}: n_valid {n_val} < {need_valid}")
-        return med, n_val
+        return _check_accuracy(label, res, truth["centers"])
 
     ref_im = pipe.prepare_reference(pipe.correct_reference(ref_raw[None]))
     res = pipe.process_round(warm_raw[None], ref_im)
@@ -416,7 +775,7 @@ def main(argv=None) -> int:
     del res
 
     times, per_round, outs = [], [], []
-    total = {name: 0 for name in kernel_launches()}
+    total = {name: 0 for name in PYRAMID_PATH}
     for v in variants:
         torch.cuda.synchronize()
         reset_kernel_launches()
@@ -426,11 +785,11 @@ def main(argv=None) -> int:
         times.append(time.perf_counter() - t0)
         counts = kernel_launches()
         per_round.append(counts)
-        for name, c in counts.items():
-            if c < 1:
+        for name in PYRAMID_PATH:
+            if counts[name] < 1:
                 raise AssertionError(f"kernel {name} did not launch in a "
                                      f"main-path round: {counts}")
-            total[name] += c
+            total[name] += counts[name]
         outs.append(out)
     # outside the timed region: every timed round meets the same gate
     round_accuracy = [check_accuracy(f"timed round {i}", out)
@@ -461,6 +820,15 @@ def main(argv=None) -> int:
     if args.profile:
         record["profile"] = _profile_round(torch, pipe, variants[0], ref_im,
                                            smi)
+    del pipe, ref_im, variants, raw3, corr3, ref_raw, warm_raw
+    torch.cuda.empty_cache()
+
+    # ---- 4. the dual-blur and level-stencil paths -------------------------
+    record["dual_blur_path"] = dual = _dual_blur_phase(torch, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 5. the end-to-end path (exact classifier) ------------------------
+    record["e2e"] = e2e = _e2e_phase(torch, smi)
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -475,13 +843,43 @@ def main(argv=None) -> int:
          "launches": total["lm_fit"], "max_abs_err": lm_err,
          "ms": lm_ms, "plain_ms": lm_plain_ms, "bound_ms": lm_bound[0],
          "bound_by": lm_bound[1], "library_ms": None},
+        {"name": "seed_classify", "route": "cuda",
+         "source": "imageanalysis3_tpu_torch/csrc/seed_classify.cu",
+         "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:522",
+         "launches": e2e["seed_classify_launches"],
+         "max_abs_err": cls["max_abs_err"], "ms": cls_ms,
+         "plain_ms": cls_plain_ms, "bound_ms": cls_bound[0],
+         "bound_by": cls_bound[1], "library_ms": None},
+        {"name": "dual_blur", "route": "cuda",
+         "source": "imageanalysis3_tpu_torch/csrc/dual_blur.cu",
+         "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:280",
+         "launches": sum(c["dual_blur"] for c in dual["launches_per_round"]),
+         "max_abs_err": blur["max_abs_err"], "ms": blur_ms,
+         "plain_ms": blur_plain_ms, "bound_ms": blur_bound[0],
+         "bound_by": blur_bound[1], "library_ms": None},
+        {"name": "level_stencil", "route": "cuda",
+         "source": "imageanalysis3_tpu_torch/csrc/level_stencil.cu",
+         "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:120",
+         "launches": dual["level_stencil_launches"]["level_stencil"],
+         "max_abs_err": lvl["max_abs_err"], "ms": lvl_ms,
+         "plain_ms": lvl_plain_ms, "bound_ms": lvl_bound[0],
+         "bound_by": lvl_bound[1], "library_ms": None},
     ]
     record.update(
         shape=shape, n_spots=len(truth["centers"]), kernels=kernels,
         max_abs_err_definition={
             "seed_pyramid": "max |qdiff kernel - plain| over voxels both "
                             "qualify (intensity units)",
-            "lm_fit": "max |centre kernel - plain| over valid spots (px)"},
+            "lm_fit": "max |centre kernel - plain| over valid spots (px)",
+            "seed_classify": "max |qdiff kernel - plain| over voxels both "
+                             "qualify (intensity units)",
+            "dual_blur": "max |blur kernel - plain| over both stacks "
+                         "(intensity units)",
+            "level_stencil": "max |diff kernel - plain| (intensity units)"},
+        kernel_checks={"seed_classify": cls,
+                       "seed_classify_generic_radius": cls_gen,
+                       "dual_blur": blur, "dual_blur_generic_radius": blur_gen,
+                       "level_stencil": lvl},
         seconds_per_stack=sec, round_seconds=times, stage_seconds=stages,
         launches_per_round=per_round, median_centroid_err_px=med_err,
         n_valid=n_valid, timed_round_accuracy=round_accuracy,

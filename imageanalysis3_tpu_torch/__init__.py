@@ -1,12 +1,14 @@
 """imageanalysis3_tpu_torch: the PyTorch/CUDA port of imageanalysis3_tpu.
 
 One hybridization round of one FOV -- corrections, drift consensus,
-pyramid-background seeding, the fused LM Gaussian fit and the coordinate
-warp -- in PyTorch, with hand-written CUDA kernels (``csrc/``) for the
-seeding classifier and the LM fit.  Entry points run on the CUDA card
-unless the caller passes ``device="cpu"``; on the CPU every kernel runs as
-its plain PyTorch version.  The package imports neither JAX nor
-``imageanalysis3_tpu``.
+seeding (pyramid-background or exact classifier), the fused LM Gaussian fit
+and the coordinate warp -- and the end-to-end path beyond it: MERFISH
+decoding of the rounds' spots and homolog E/M traces (``decode``).  In
+PyTorch, with hand-written CUDA kernels (``csrc/``) for the seeding
+classifiers, the dual blur, the level stencil and the LM fit.  Entry points
+run on the CUDA card unless the caller passes ``device="cpu"``; on the CPU
+every kernel runs as its plain PyTorch version.  The package imports
+neither JAX, nor ``imageanalysis3_tpu``, nor pandas.
 """
 
 from .config import (CorrectionConfig, DriftConfig, ExperimentConfig,

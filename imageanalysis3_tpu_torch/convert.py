@@ -1,12 +1,13 @@
-"""Carry a pipeline's state across from its NumPy form.
+"""Carry a pipeline's and a decoder's state across from their NumPy form.
 
-The main path has no learned weights; its state is the per-FOV arrays a
-``FovPipeline`` holds (illumination and bleed profiles, chromatic constants
-and centre, per-channel seed thresholds, drift crop boxes) plus the
-prepared reference spectra.  :func:`pipeline_from_arrays` rebuilds a port
-pipeline from those arrays as NumPy (e.g. ``np.asarray`` of the JAX
-package's pipeline attributes) and a ``dataclasses.asdict`` config, so the
-two packages compute the same thing.
+The system has no learned weights.  A ``FovPipeline``'s state is the
+per-FOV arrays it holds (illumination and bleed profiles, chromatic
+constants and centre, per-channel seed thresholds, drift crop boxes) plus
+the prepared reference spectra; a ``DNAMerfishDecoder``'s state is its
+codebook tables and pixel sizes.  :func:`pipeline_from_arrays` and
+:func:`decoder_from_arrays` rebuild the port's objects from those arrays
+as NumPy (e.g. ``np.asarray`` of the JAX package's attributes), so the two
+packages compute the same thing.
 """
 
 from __future__ import annotations
@@ -17,12 +18,16 @@ import numpy as np
 import torch
 
 from .config import config_from_dict
+from .decode.dna_decoder import DNAMerfishDecoder
 from .pipeline.fov import FovPipeline
 
 #: structural keys (small integer arrays) and the optional state arrays
 STRUCTURE_KEYS = ("image_shape", "drift_idx", "fit_idx")
 STATE_KEYS = ("illumination", "bleed", "chromatic", "chrom_center",
               "seed_thresholds", "crops", "ref_spectra")
+#: a decoder's codebook tables (``Codebook.matrix``, ``ids``,
+#: ``bit_values``), its per-region chromosome names and its pixel sizes
+DECODER_KEYS = ("matrix", "ids", "bit_values", "chr", "pixel_sizes")
 
 
 def pipeline_from_arrays(cfg_dict: dict, arrays: Dict[str, np.ndarray],
@@ -61,3 +66,30 @@ def pipeline_from_arrays(cfg_dict: dict, arrays: Dict[str, np.ndarray],
         spectra = torch.as_tensor(np.array(spectra, np.complex64),
                                   device=pipe.device)
     return pipe, spectra
+
+
+def decoder_from_arrays(arrays: Dict[str, np.ndarray],
+                        pair_search_radius: float = 250.0,
+                        num_homologs: int = 2, keep_ratio_th: float = 0.5,
+                        device=None) -> DNAMerfishDecoder:
+    """Build a port ``DNAMerfishDecoder`` from NumPy codebook tables.
+
+    `arrays` holds ``matrix`` (G, B) on-bits, ``ids`` (G,) region ids,
+    ``bit_values`` (B,) bit labels, ``chr`` (G,) chromosome names and
+    ``pixel_sizes`` (3,) nm, e.g. the JAX decoder's ``codebook`` fields,
+    ``codebook_df["chr"]`` and ``pixel_sizes``.  The scalars are the
+    decoder's own parameters (the JAX decoder's
+    ``decoder.search_th``, ``num_homologs`` and ``keep_ratio_th``).
+    """
+    if set(arrays) != set(DECODER_KEYS):
+        raise KeyError(f"decoder_from_arrays: expected {DECODER_KEYS}, got "
+                       f"{sorted(arrays)}")
+    matrix = np.asarray(arrays["matrix"])
+    columns = {"id": np.asarray(arrays["ids"], np.int64),
+               "chr": np.asarray(arrays["chr"]).astype(str)}
+    for b, label in enumerate(np.asarray(arrays["bit_values"])):
+        columns[str(int(label))] = matrix[:, b]
+    return DNAMerfishDecoder(columns, pixel_sizes=np.asarray(
+        arrays["pixel_sizes"], np.float32),
+        pair_search_radius=pair_search_radius, num_homologs=num_homologs,
+        keep_ratio_th=keep_ratio_th, device=device)

@@ -1,37 +1,143 @@
-"""Pyramid-background seeding classifier: CUDA kernel and its plain version.
+"""Seeding classifier kernels: four CUDA kernels and their plain versions.
 
-The counterpart of ``imageanalysis3_tpu/ops/pallas_kernels.py:
-fused_seed_classify_pyramid``.  The background Gaussian (sigma ~7.5, a
-61-tap reach) runs on a 4x4 xy-pooled grid at sigma/4 and is bilinearly
-upsampled inside the classifier, so the full-resolution background stack
-never exists in device memory.
+The counterparts of the four seeding functions of
+``imageanalysis3_tpu/ops/pallas_kernels.py`` that reach ``pl.pallas_call``:
 
-:func:`fused_seed_classify_pyramid` does the host prep in PyTorch
-(:func:`pyramid_background`: mean pool, bg blur, plateau sentinel), then
-hands the corrected stack and the pooled bg to ``csrc/seed_pyramid.cu`` for
-a CUDA tensor or to :func:`fused_seed_classify_pyramid_plain` for a CPU
-tensor.  Both return ``(qdiff, counts)``: the fg-bg signal where the voxel
-is a fg 3^3 local maximum inside the edge margin (-inf elsewhere), and the
-per-level histogram of those voxels.
+* :func:`fused_seed_classify_pyramid` (``csrc/seed_pyramid.cu``): the
+  pyramid-background classifier.  The background Gaussian (sigma ~7.5, a
+  61-tap reach) runs on a 4x4 xy-pooled grid at sigma/4 and is bilinearly
+  upsampled inside the classifier; the host prep (:func:`pyramid_background`:
+  mean pool, bg blur, plateau sentinel) stays in PyTorch.
+* :func:`fused_seed_classify` (``csrc/seed_classify.cu``): the exact
+  classifier.  Both z passes run as one banded matmul (:func:`z_pass_pair`);
+  the kernel xy-blurs both stacks plane by plane on chip and emits the 3^3
+  stencil and classification, so the blurred stacks never reach device
+  memory.
+* :func:`dual_gaussian_blur` (``csrc/dual_blur.cu``): the x+y blur of two
+  z-passed stacks in one launch, for configs the exact classifier cannot
+  take.
+* :func:`level_stencil` (``csrc/level_stencil.cu``): the 3^3 max/min
+  stencil and level map over two given blurred stacks.
+
+The classifiers return ``(qdiff, counts)``: the fg-bg signal where the voxel
+qualifies (3^3 local max inside the edge margin, -inf elsewhere) and the
+per-level histogram of those voxels.  Each dispatcher runs the CUDA kernel
+for a CUDA tensor and the plain version for a CPU tensor, and raises on any
+other device.  Kernel and plain version sum every blur in the same tap
+order, so they agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
-from .filters import (_conv1d_along_axis, _shift_add, _window_reduce,
-                      gaussian_kernel1d)
+from .filters import (_band_matrix, _conv1d_along_axis, _shift_add,
+                      _window_reduce, gaussian_kernel1d)
 
-#: kernel launches made by :func:`fused_seed_classify_pyramid_cuda`
-launches = 0
+#: launches of each kernel's CUDA wrapper since the last reset
+launches: Dict[str, int] = {"seed_pyramid": 0, "seed_classify": 0,
+                            "dual_blur": 0, "level_stencil": 0}
 
-MAX_FG_RADIUS = 12
+MAX_FG_RADIUS = 12     # seed_pyramid
+MAX_RADIUS = 36        # seed_classify / dual_blur (csrc/seed_common.cuh)
 MAX_LEVELS = 128
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+
+def _check(kernel: str, t: torch.Tensor, name: str, shape,
+           dtype=torch.float32) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def _launch(kernel: str, argtypes, *args) -> None:
+    """Call ``<kernel>_launch`` of ``csrc/<kernel>.cu`` on the current
+    stream (the last argument), raise on a nonzero rc, count the launch."""
+    lib = _build.load(kernel)
+    fn = getattr(lib, f"{kernel}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    rc = fn(*args)
+    if rc != 0:
+        err = lib.ia3_cuda_error_string
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{kernel} kernel launch failed: "
+                           f"{err(rc).decode()} ({rc})")
+    launches[kernel] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _host_taps(kernel: np.ndarray) -> np.ndarray:
+    taps = np.ascontiguousarray(kernel, np.float32)
+    if taps.ndim != 1 or len(taps) % 2 == 0 or len(taps) // 2 > MAX_RADIUS:
+        raise ValueError(f"taps must be an odd-length 1D kernel of radius "
+                         f"<= {MAX_RADIUS}, got shape {taps.shape}")
+    return taps
+
+
+def _edge_ok(shape, d: int, device) -> torch.Tensor:
+    z, x, y = shape
+    zi = torch.arange(z, device=device)[:, None, None]
+    xi = torch.arange(x, device=device)[None, :, None]
+    yi = torch.arange(y, device=device)[None, None, :]
+    return ((zi >= d) & (zi <= z - d) & (xi >= d) & (xi <= x - d)
+            & (yi >= d) & (yi <= y - d))
+
+
+def _levels(diff: torch.Tensor, th: float, n_lvl: int) -> torch.Tensor:
+    """clip(ceil((1 - diff/th) n), 0, n) in the kernels' f32 arithmetic."""
+    th_t = torch.tensor(th, dtype=torch.float32, device=diff.device)
+    return torch.ceil((1.0 - diff / th_t) * float(n_lvl)).clamp(0, n_lvl)
+
+
+def _histogram(level: torch.Tensor, n_lvl: int) -> torch.Tensor:
+    return torch.bincount(level.to(torch.int64).reshape(-1),
+                          minlength=n_lvl + 1)[:n_lvl].to(torch.int32)
+
+
+def _clamped_th(th_seed) -> float:
+    return float(max(np.float32(float(th_seed)), np.float32(1e-6)))
+
+
+def _dispatch(t: torch.Tensor, kernel: str) -> bool:
+    """True for a CUDA tensor (run the kernel), False for a CPU tensor (run
+    the plain version); raises on any other device."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"{kernel}: no kernel for device {t.device}")
+    return False
+
+
+def _blur_xy(im: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """x then y 'reflect' pass by shift-add: the order the kernels sum in."""
+    return _shift_add(_shift_add(im, kernel, 1, "reflect"), kernel, 2,
+                      "reflect")
+
+
+# ---------------------------------------------------------------------------
+# Pyramid-background classifier (seed_pyramid.cu)
+# ---------------------------------------------------------------------------
 
 
 def pyramid_background(im: torch.Tensor, sigma_bg: float) -> torch.Tensor:
@@ -62,9 +168,7 @@ def _blur_in_tap_order(im: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     """Separable 'reflect' blur along z, x, y by shift-add on every axis
     (also where gaussian_filter would take a band matmul, e.g. z <= 7):
     the kernel's exact arithmetic."""
-    for ax in range(3):
-        im = _shift_add(im, kernel, ax, "reflect")
-    return im
+    return _blur_xy(_shift_add(im, kernel, 0, "reflect"), kernel)
 
 
 def _bilinear_axis(n_fine: int, n_pooled: int, device):
@@ -90,15 +194,6 @@ def upsample_background(bgs: torch.Tensor, x: int, y: int) -> torch.Tensor:
     return by[:, ix0, :] * wx0[:, None] + by[:, ix1, :] * wx1[:, None]
 
 
-def _edge_ok(shape, d: int, device) -> torch.Tensor:
-    z, x, y = shape
-    zi = torch.arange(z, device=device)[:, None, None]
-    xi = torch.arange(x, device=device)[None, :, None]
-    yi = torch.arange(y, device=device)[None, None, :]
-    return ((zi >= d) & (zi <= z - d) & (xi >= d) & (xi <= x - d)
-            & (yi >= d) & (yi <= y - d))
-
-
 def fused_seed_classify_pyramid_plain(im: torch.Tensor, bgs: torch.Tensor,
                                       k_fg: np.ndarray, th: float,
                                       n_lvl: int, min_edge_distance: int
@@ -110,26 +205,8 @@ def fused_seed_classify_pyramid_plain(im: torch.Tensor, bgs: torch.Tensor,
     bg = upsample_background(bgs, im.shape[1], im.shape[2])
     diff = fg - bg
     qualify = local_max & _edge_ok(im.shape, min_edge_distance, im.device)
-    th_t = torch.tensor(th, dtype=torch.float32, device=im.device)
-    frac = 1.0 - diff / th_t
-    level = torch.ceil(frac[qualify] * float(n_lvl)).clamp(0, n_lvl)
-    counts = torch.bincount(level.to(torch.int64),
-                            minlength=n_lvl + 1)[:n_lvl]
-    qdiff = torch.where(qualify, diff, float("-inf"))
-    return qdiff, counts.to(torch.int32)
-
-
-def _check(t: torch.Tensor, name: str, shape) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"seed_pyramid: {name} must be a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"seed_pyramid: {name} must be float32, "
-                         f"got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"seed_pyramid: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"seed_pyramid: {name} must be contiguous")
+    counts = _histogram(_levels(diff[qualify], th, n_lvl), n_lvl)
+    return torch.where(qualify, diff, float("-inf")), counts
 
 
 def fused_seed_classify_pyramid_cuda(im: torch.Tensor, bgs: torch.Tensor,
@@ -137,7 +214,6 @@ def fused_seed_classify_pyramid_cuda(im: torch.Tensor, bgs: torch.Tensor,
                                      n_lvl: int, min_edge_distance: int
                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/seed_pyramid.cu`` on the current stream."""
-    global launches
     if im.ndim != 3:
         raise ValueError(f"seed_pyramid: im must be (Z, X, Y), got "
                          f"{tuple(im.shape)}")
@@ -145,8 +221,8 @@ def fused_seed_classify_pyramid_cuda(im: torch.Tensor, bgs: torch.Tensor,
     if x % 4 or y % 4:
         raise ValueError(f"seed_pyramid: X and Y must be multiples of 4, "
                          f"got {tuple(im.shape)}")
-    _check(im, "im", (z, x, y))
-    _check(bgs, "bgs", (z, x // 4, y // 4))
+    _check("seed_pyramid", im, "im", (z, x, y))
+    _check("seed_pyramid", bgs, "bgs", (z, x // 4, y // 4))
     r = len(k_fg) // 2
     if r > MAX_FG_RADIUS or not 1 <= n_lvl <= MAX_LEVELS:
         raise ValueError(f"seed_pyramid: fg radius {r} (max "
@@ -155,22 +231,12 @@ def fused_seed_classify_pyramid_cuda(im: torch.Tensor, bgs: torch.Tensor,
     taps = torch.as_tensor(np.asarray(k_fg, np.float32), device=im.device)
     qdiff = torch.empty_like(im)
     counts = torch.zeros(n_lvl, dtype=torch.int32, device=im.device)
-    lib = _build.load("seed_pyramid")
-    fn = lib.seed_pyramid_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    rc = fn(im.data_ptr(), bgs.data_ptr(), taps.data_ptr(),
-            qdiff.data_ptr(), counts.data_ptr(), z, x, y, r, float(th),
-            int(n_lvl), int(min_edge_distance),
-            torch.cuda.current_stream(im.device).cuda_stream)
-    if rc != 0:
-        err = lib.ia3_cuda_error_string
-        err.restype = ctypes.c_char_p
-        err.argtypes = [ctypes.c_int]
-        raise RuntimeError(f"seed_pyramid kernel launch failed: "
-                           f"{err(rc).decode()} ({rc})")
-    launches += 1
+    _launch("seed_pyramid",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+            im.data_ptr(), bgs.data_ptr(), taps.data_ptr(), qdiff.data_ptr(),
+            counts.data_ptr(), z, x, y, r, float(th), int(n_lvl),
+            int(min_edge_distance), _stream(im))
     return qdiff, counts
 
 
@@ -200,12 +266,211 @@ def fused_seed_classify_pyramid(im: torch.Tensor, sigma_fg: float,
                          f"{sigma_fg}, min_edge_distance "
                          f"{min_edge_distance}")
     k_fg = gaussian_kernel1d(sigma_fg)
-    th = float(max(np.float32(float(th_seed)), np.float32(1e-6)))
+    th = _clamped_th(th_seed)
     bgs = pyramid_background(imf, sigma_bg)
-    if imf.is_cuda:
+    if _dispatch(imf, "seed_pyramid"):
         return fused_seed_classify_pyramid_cuda(imf, bgs, k_fg, th, n_lvl,
                                                 min_edge_distance)
-    if imf.device.type != "cpu":
-        raise ValueError(f"seed_pyramid: no kernel for device {imf.device}")
     return fused_seed_classify_pyramid_plain(imf, bgs, k_fg, th, n_lvl,
                                              min_edge_distance)
+
+
+# ---------------------------------------------------------------------------
+# Exact classifier (seed_classify.cu)
+# ---------------------------------------------------------------------------
+
+
+def z_pass_pair(im: torch.Tensor, k_fg: np.ndarray, k_bg: np.ndarray
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both 'reflect' z passes as ONE f32 banded matmul (2Z, Z) @ (Z, X*Y),
+    the einsum the JAX package runs outside its kernel -> (fgz, bgz), two
+    contiguous (Z, X, Y) views of one (2, Z, X, Y) buffer.  Callers on the
+    card keep TF32 off (torch.backends.cuda.matmul.allow_tf32)."""
+    z, x, y = im.shape
+    w = np.concatenate([_band_matrix(z, tuple(k_fg.tolist()), "reflect"),
+                        _band_matrix(z, tuple(k_bg.tolist()), "reflect")])
+    w = torch.from_numpy(w).to(im.device)
+    out = torch.matmul(w, im.reshape(z, x * y)).reshape(2, z, x, y)
+    return out[0], out[1]
+
+
+def fused_seed_classify_plain(fgz: torch.Tensor, bgz: torch.Tensor,
+                              k_fg: np.ndarray, k_bg: np.ndarray, th: float,
+                              n_lvl: int, min_edge_distance: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csrc/seed_classify.cu`` on the same
+    z-passed inputs -> (qdiff (Z, X, Y) f32, counts (n_lvl,) int32)."""
+    fg = _blur_xy(fgz, k_fg)
+    bg = _blur_xy(bgz, k_bg)
+    local_max = ((_window_reduce(fg, 3, "constant", "max") == fg)
+                 & (_window_reduce(bg, 3, "constant", "min") != bg))
+    diff = fg - bg
+    qualify = local_max & _edge_ok(fg.shape, min_edge_distance, fg.device)
+    counts = _histogram(_levels(diff[qualify], th, n_lvl), n_lvl)
+    return torch.where(qualify, diff, float("-inf")), counts
+
+
+def fused_seed_classify_cuda(fgz: torch.Tensor, bgz: torch.Tensor,
+                             k_fg: np.ndarray, k_bg: np.ndarray, th: float,
+                             n_lvl: int, min_edge_distance: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/seed_classify.cu`` on the current stream."""
+    if fgz.ndim != 3:
+        raise ValueError(f"seed_classify: fgz must be (Z, X, Y), got "
+                         f"{tuple(fgz.shape)}")
+    _check("seed_classify", fgz, "fgz", fgz.shape)
+    _check("seed_classify", bgz, "bgz", fgz.shape)
+    if not 1 <= n_lvl <= MAX_LEVELS:
+        raise ValueError(f"seed_classify: n_lvl {n_lvl} out of range")
+    tf, tb = _host_taps(k_fg), _host_taps(k_bg)
+    z, x, y = fgz.shape
+    qdiff = torch.empty_like(fgz)
+    counts = torch.zeros(n_lvl, dtype=torch.int32, device=fgz.device)
+    _launch("seed_classify",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p],
+            fgz.data_ptr(), bgz.data_ptr(), qdiff.data_ptr(),
+            counts.data_ptr(), tf.ctypes.data, len(tf), tb.ctypes.data,
+            len(tb), z, x, y, float(th), int(n_lvl), int(min_edge_distance),
+            _stream(fgz))
+    return qdiff, counts
+
+
+def fused_supported(shape, gfilt_size: float, background_gfilt_size: float,
+                    filt_size: int, min_edge_distance: int,
+                    slab_x: int) -> bool:
+    """Whether the exact fused classifier takes this config (the JAX
+    package's semantic conditions, without its TPU tiling gates)."""
+    if not (gfilt_size and background_gfilt_size):
+        return False
+    r = max(int(4.0 * float(s) + 0.5)
+            for s in (gfilt_size, background_gfilt_size))
+    return (filt_size == 3 and min_edge_distance >= 1 and shape[0] >= 2
+            and r <= MAX_RADIUS and shape[1] <= 2 * slab_x)
+
+
+def fused_seed_classify(im: torch.Tensor, sigma_fg: float, sigma_bg: float,
+                        th_seed, n_lvl: int, min_edge_distance: int = 2
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact seeding classifier -> (qdiff, counts): z passes as one banded
+    matmul, then the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    imf = im.to(torch.float32).contiguous()
+    if min_edge_distance < 1 or imf.ndim != 3 or imf.shape[0] < 2:
+        raise ValueError("fused_seed_classify: needs a (Z >= 2, X, Y) stack "
+                         f"and min_edge_distance >= 1, got "
+                         f"{tuple(imf.shape)}, {min_edge_distance}")
+    k_fg, k_bg = gaussian_kernel1d(sigma_fg), gaussian_kernel1d(sigma_bg)
+    th = _clamped_th(th_seed)
+    cuda = _dispatch(imf, "seed_classify")
+    fgz, bgz = z_pass_pair(imf, k_fg, k_bg)
+    fn = fused_seed_classify_cuda if cuda else fused_seed_classify_plain
+    return fn(fgz, bgz, k_fg, k_bg, th, n_lvl, min_edge_distance)
+
+
+# ---------------------------------------------------------------------------
+# Dual x+y blur (dual_blur.cu)
+# ---------------------------------------------------------------------------
+
+
+def dual_blur_xy_plain(fgz: torch.Tensor, bgz: torch.Tensor,
+                       k_fg: np.ndarray, k_bg: np.ndarray
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csrc/dual_blur.cu``: the x then y
+    'reflect' passes of each z-passed stack, taps in order."""
+    return _blur_xy(fgz, k_fg), _blur_xy(bgz, k_bg)
+
+
+def dual_blur_xy_cuda(fgz: torch.Tensor, bgz: torch.Tensor,
+                      k_fg: np.ndarray, k_bg: np.ndarray
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/dual_blur.cu`` on the current stream."""
+    if fgz.ndim != 3:
+        raise ValueError(f"dual_blur: fgz must be (Z, X, Y), got "
+                         f"{tuple(fgz.shape)}")
+    _check("dual_blur", fgz, "fgz", fgz.shape)
+    _check("dual_blur", bgz, "bgz", fgz.shape)
+    tf, tb = _host_taps(k_fg), _host_taps(k_bg)
+    z, x, y = fgz.shape
+    fg, bg = torch.empty_like(fgz), torch.empty_like(bgz)
+    _launch("dual_blur",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+            fgz.data_ptr(), bgz.data_ptr(), fg.data_ptr(), bg.data_ptr(),
+            tf.ctypes.data, len(tf), tb.ctypes.data, len(tb), z, x, y,
+            _stream(fgz))
+    return fg, bg
+
+
+def dual_gaussian_blur(im: torch.Tensor, sigma_fg: float, sigma_bg: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gaussian(im, sigma_fg), gaussian(im, sigma_bg)), scipy 'reflect':
+    the z passes as filters._conv1d_along_axis (as the JAX wrapper does),
+    then the CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    imf = im.to(torch.float32)
+    cuda = _dispatch(imf, "dual_blur")
+    k_fg, k_bg = gaussian_kernel1d(sigma_fg), gaussian_kernel1d(sigma_bg)
+    fgz = _conv1d_along_axis(imf, k_fg, 0, "reflect").contiguous()
+    bgz = _conv1d_along_axis(imf, k_bg, 0, "reflect").contiguous()
+    fn = dual_blur_xy_cuda if cuda else dual_blur_xy_plain
+    return fn(fgz, bgz, k_fg, k_bg)
+
+
+# ---------------------------------------------------------------------------
+# Level stencil (level_stencil.cu)
+# ---------------------------------------------------------------------------
+
+
+def level_stencil_plain(max_im: torch.Tensor, min_im: torch.Tensor,
+                        th: float, n_lvl: int, min_edge_distance: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csrc/level_stencil.cu`` -> (level
+    (Z, X, Y) int8, diff (Z, X, Y) f32, counts (n_lvl,) int32); edges
+    replicate, which for a 3-window equals scipy 'reflect'."""
+    local_max = ((_window_reduce(max_im, 3, "nearest", "max") == max_im)
+                 & (_window_reduce(min_im, 3, "nearest", "min") != min_im))
+    diff = max_im - min_im
+    qualify = local_max & _edge_ok(max_im.shape, min_edge_distance,
+                                   max_im.device)
+    level = torch.where(qualify, _levels(diff, th, n_lvl),
+                        float(n_lvl)).to(torch.int8)
+    return level, diff, _histogram(level, n_lvl)
+
+
+def level_stencil_cuda(max_im: torch.Tensor, min_im: torch.Tensor,
+                       th: float, n_lvl: int, min_edge_distance: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/level_stencil.cu`` on the current stream."""
+    if max_im.ndim != 3:
+        raise ValueError(f"level_stencil: max_im must be (Z, X, Y), got "
+                         f"{tuple(max_im.shape)}")
+    _check("level_stencil", max_im, "max_im", max_im.shape)
+    _check("level_stencil", min_im, "min_im", max_im.shape)
+    if not 1 <= n_lvl < 127:
+        raise ValueError(f"level_stencil: n_lvl {n_lvl} must be in [1, 127)")
+    z, x, y = max_im.shape
+    level = torch.empty(max_im.shape, dtype=torch.int8, device=max_im.device)
+    diff = torch.empty_like(max_im)
+    counts = torch.zeros(n_lvl, dtype=torch.int32, device=max_im.device)
+    _launch("level_stencil",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+            max_im.data_ptr(), min_im.data_ptr(), level.data_ptr(),
+            diff.data_ptr(), counts.data_ptr(), z, x, y, float(th),
+            int(n_lvl), int(min_edge_distance), _stream(max_im))
+    return level, diff, counts
+
+
+def level_stencil(max_im: torch.Tensor, min_im: torch.Tensor, th_seed,
+                  n_lvl: int, min_edge_distance: int = 2
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """3^3 stencil + level map of two blurred stacks -> (level int8, diff,
+    counts): the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    mx = max_im.to(torch.float32).contiguous()
+    mn = min_im.to(torch.float32).contiguous()
+    fn = (level_stencil_cuda if _dispatch(mx, "level_stencil")
+          else level_stencil_plain)
+    return fn(mx, mn, _clamped_th(th_seed), n_lvl, min_edge_distance)

@@ -15,11 +15,21 @@ smallest decay level at which it qualifies, and a cumulative histogram over
 levels picks the level reaching `min_dynamic_seeds`.  Output is a
 fixed-capacity seed table with a validity count.
 
-Which classifier runs is the config's choice, on every device: with
-``pyramid_bg`` (the default) and a config the pyramid classifier takes, it
-runs (ops/seed_kernels.py: the CUDA kernel for a CUDA tensor, its plain
-version for a CPU tensor); otherwise the exact classifier runs in plain
-PyTorch, in x-slabs for planes wider than ``2 * slab_x``.
+Which classifier runs is the config's choice, on every device, in the JAX
+package's order (without its TPU tiling gates):
+
+1. ``pyramid_bg`` and a config the pyramid classifier takes -> the pyramid
+   classifier (``seed_kernels.fused_seed_classify_pyramid``);
+2. else ``filt_size == 3``, ``min_edge_distance >= 1``, ``z >= 2``, both
+   sigmas nonzero, radii <= 36 and ``x <= 2 * slab_x`` -> the exact fused
+   classifier (``seed_kernels.fused_seed_classify``);
+3. else both sigmas nonzero, radii <= 32 and ``x <= 2 * slab_x`` -> the dual
+   x+y blur (``seed_kernels.dual_gaussian_blur``) and the plain stencil;
+4. else plain PyTorch, in x-slabs for planes wider than ``2 * slab_x``.
+
+The device picks kernel or plain version: each ``seed_kernels`` dispatcher
+runs its CUDA kernel for a CUDA tensor and its plain version for a CPU
+tensor.
 """
 
 from __future__ import annotations
@@ -31,7 +41,12 @@ import torch
 
 from .filters import (_pad_axis, _window_reduce_interior, gaussian_filter,
                       maximum_filter, minimum_filter)
-from .seed_kernels import fused_seed_classify_pyramid, pyramid_supported
+from .seed_kernels import (dual_gaussian_blur, fused_seed_classify,
+                           fused_seed_classify_pyramid,
+                           fused_supported, pyramid_supported)
+
+#: largest radius the dual-blur path takes (the JAX package's x padding)
+DUAL_BLUR_MAX_RADIUS = 32
 
 
 class Seeds(NamedTuple):
@@ -141,12 +156,27 @@ def get_seeds(im: torch.Tensor,
     args = (th_f, gfilt_size, background_gfilt_size, filt_size,
             min_edge_distance, n_lvl)
 
+    use_dual = (bool(gfilt_size and background_gfilt_size)
+                and shape[1] <= 2 * slab_x
+                and max(_radius(gfilt_size), _radius(background_gfilt_size))
+                <= DUAL_BLUR_MAX_RADIUS)
     if pyramid_bg and pyramid_supported(shape, gfilt_size,
                                         background_gfilt_size, filt_size,
                                         min_edge_distance):
         qdiff, counts = fused_seed_classify_pyramid(
             imf, gfilt_size, background_gfilt_size, th_f, n_lvl,
             min_edge_distance=min_edge_distance)
+    elif fused_supported(shape, gfilt_size, background_gfilt_size,
+                         filt_size, min_edge_distance, slab_x):
+        qdiff, counts = fused_seed_classify(
+            imf, gfilt_size, background_gfilt_size, th_f, n_lvl,
+            min_edge_distance=min_edge_distance)
+    elif use_dual:
+        max_im, min_im = dual_gaussian_blur(imf, gfilt_size,
+                                            background_gfilt_size)
+        qdiff, counts = _classify_from_blurs(
+            max_im, min_im, th_f, 0, shape[1], shape, filt_size,
+            min_edge_distance, n_lvl)
     elif shape[1] > 2 * slab_x and shape[1] % slab_x == 0:
         padded = _pad_axis(imf, 1, halo, halo, "reflect")
         qs, hs = [], []

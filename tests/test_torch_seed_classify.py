@@ -1,0 +1,190 @@
+"""PyTorch port vs JAX package: the exact seeding kernels on the CPU.
+
+The port's kernels run as their plain versions on CPU tensors; the JAX
+Pallas kernels run in interpret mode, as tests/test_pallas.py runs them.
+Inputs are made with NumPy from a seed and handed to both packages.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from imageanalysis3_tpu import synthetic as jsyn
+from imageanalysis3_tpu.ops import seeding as js
+from imageanalysis3_tpu.ops.filters import gaussian_filter as jgauss
+from imageanalysis3_tpu.ops.pallas_kernels import (dual_gaussian_blur,
+                                                   fused_seed_classify,
+                                                   level_stencil_pallas)
+from imageanalysis3_tpu_torch.ops import seed_kernels as tk
+from imageanalysis3_tpu_torch.ops import seeding as ts
+from imageanalysis3_tpu_torch.ops.filters import gaussian_kernel1d
+
+torch.set_num_threads(2)
+SHAPES = [(12, 64, 256), (4, 128, 256)]
+
+
+def _raw(shape, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(50, 3000, shape).astype(np.float32)
+
+
+def _planted(shape, n, seed, noise_seed):
+    rng = np.random.default_rng(seed)
+    truth = jsyn.sample_spot_params(shape, n, rng, min_separation=8.0,
+                                    height_range=(400.0, 3000.0),
+                                    sigma_jitter=0.0)
+    im = jsyn.render_gaussian_spots(shape, truth["centers"],
+                                    truth["heights"], truth["sigmas"],
+                                    truth["background"])
+    im = jsyn.poisson_camera_noise(im, np.random.default_rng(noise_seed))
+    return im.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_level_stencil_plain_matches_pallas_interpret(shape):
+    """Level map and counts identical, diff within rtol 1e-6."""
+    im = jnp.asarray(_raw(shape, 0))
+    mx = np.asarray(jgauss(im, 0.75))
+    mn = np.asarray(jgauss(im, 7.5))
+    lvl_j, diff_j, cnt_j = level_stencil_pallas(
+        jnp.asarray(mx), jnp.asarray(mn), 300.0, 10, interpret=True)
+    lvl_t, diff_t, cnt_t = tk.level_stencil(torch.from_numpy(mx),
+                                            torch.from_numpy(mn), 300.0, 10)
+    assert lvl_t.dtype == torch.int8
+    np.testing.assert_array_equal(lvl_t.numpy(), np.asarray(lvl_j))
+    np.testing.assert_allclose(diff_t.numpy(), np.asarray(diff_j),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
+    assert int(cnt_t.sum()) > 0
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_dual_blur_plain_matches_pallas_and_gaussian_filter(shape):
+    """Both blurs within rtol 2e-5 / atol 2e-2 of the Pallas kernel
+    (interpret mode) and of JAX's gaussian_filter, reflect edges
+    included."""
+    im = _raw(shape, 1)
+    fg_t, bg_t = tk.dual_gaussian_blur(torch.from_numpy(im), 0.75, 7.5)
+    fg_j, bg_j = dual_gaussian_blur(jnp.asarray(im), 0.75, 7.5,
+                                    interpret=True)
+    for got, pallas, sigma in ((fg_t, fg_j, 0.75), (bg_t, bg_j, 7.5)):
+        want = np.asarray(jgauss(jnp.asarray(im), sigma))
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
+                                   rtol=2e-5, atol=2e-2)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-2)
+
+
+def _check_classifier(q_t, c_t, q_ref, c_ref):
+    """tests/test_pallas.py's tolerances for the fused classifier."""
+    q_ref = np.asarray(q_ref)
+    same_qual = np.isfinite(q_t) == np.isfinite(q_ref)
+    assert same_qual.mean() > 1 - 1e-5
+    both = np.isfinite(q_t) & np.isfinite(q_ref)
+    assert both.sum() > 0
+    np.testing.assert_allclose(q_t[both], q_ref[both], rtol=1e-4, atol=0.05)
+    assert abs(int(c_t.sum()) - int(np.asarray(c_ref).sum())) <= 2
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("reference", ["pallas_interpret", "level_diff_hist"])
+def test_fused_classify_plain_matches_jax(shape, reference):
+    """Qualification agrees on > 1 - 1e-5 of voxels, qdiff within rtol
+    1e-4 / atol 0.05, counts within 2: against the Pallas kernel in
+    interpret mode and against the unfused seeding._level_diff_hist."""
+    im = _raw(shape, 7)
+    q_t, c_t = tk.fused_seed_classify(torch.from_numpy(im), 0.75, 7.5,
+                                      300.0, 10, min_edge_distance=2)
+    assert c_t.dtype == torch.int32 and c_t.shape == (10,)
+    if reference == "pallas_interpret":
+        q_j, c_j = fused_seed_classify(jnp.asarray(im), 0.75, 7.5, 300.0,
+                                       10, min_edge_distance=2,
+                                       interpret=True)
+    else:
+        q_j, c_j = js._level_diff_hist(jnp.asarray(im), 300.0, 0, shape[1],
+                                       shape, 0.75, 7.5, 3, 2, 10)
+    _check_classifier(q_t.numpy(), c_t, q_j, c_j)
+
+
+def test_fused_classify_plain_equals_its_blur_parts():
+    """The fused plain version is the z-pass pair, the dual x+y blur and
+    the in-range 3^3 stencil, bit for bit (min_edge_distance 1 reaches the
+    last row and column, whose x/y neighbours lie outside)."""
+    im = torch.from_numpy(_planted((6, 64, 128), 6, 2, 3))
+    k_fg, k_bg = gaussian_kernel1d(0.75), gaussian_kernel1d(7.5)
+    fgz, bgz = tk.z_pass_pair(im, k_fg, k_bg)
+    q, c = tk.fused_seed_classify_plain(fgz, bgz, k_fg, k_bg, 300.0, 10, 1)
+    fg, bg = tk.dual_blur_xy_plain(fgz, bgz, k_fg, k_bg)
+    q2, c2 = ts._classify_from_blurs(fg, bg, 300.0, 0, 64, (6, 64, 128), 3,
+                                     1, 10)
+    assert torch.equal(q, q2) and torch.equal(c, c2)
+    assert int(c.sum()) > 0
+
+
+@pytest.mark.parametrize("filt_size", [3, 5])
+def test_get_seeds_exact_matches_jax(filt_size):
+    """pyramid_bg=False: the port's fused classifier (filt_size 3) or dual
+    blur (filt_size 5) gives JAX's seed set, heights, count and
+    threshold."""
+    im = _planted((12, 128, 256), 24, 4, 5)
+    kw = dict(max_num_seeds=64, th_seed=300.0, filt_size=filt_size)
+    s_j = js.get_seeds(jnp.asarray(im), **kw)
+    s_t = ts.get_seeds(torch.from_numpy(im), pyramid_bg=False, **kw)
+    c_t = s_t.coords.numpy()[s_t.valid.numpy()]
+    c_j = np.asarray(s_j.coords)[np.asarray(s_j.valid)]
+    assert len(c_t) == len(c_j) >= 20
+    o_t, o_j = np.lexsort(c_t.T[::-1]), np.lexsort(c_j.T[::-1])
+    np.testing.assert_array_equal(c_t[o_t], c_j[o_j])
+    h_t = s_t.heights.numpy()[s_t.valid.numpy()][o_t]
+    h_j = np.asarray(s_j.heights)[np.asarray(s_j.valid)][o_j]
+    np.testing.assert_allclose(h_t, h_j, rtol=1e-5)
+    assert int(s_t.count) == int(s_j.count)
+    assert float(s_t.threshold) == float(s_j.threshold)
+
+
+@pytest.mark.parametrize("kw,path", [
+    (dict(), "fused_seed_classify"),
+    (dict(filt_size=5), "dual_gaussian_blur"),
+    (dict(min_edge_distance=0), "dual_gaussian_blur"),
+    (dict(slab_x=16), None),
+    (dict(pyramid_bg=True), "fused_seed_classify_pyramid"),
+])
+def test_get_seeds_dispatch_follows_config(monkeypatch, kw, path):
+    """The config picks the classifier in the JAX package's order."""
+    called = []
+    for name in ("fused_seed_classify", "dual_gaussian_blur",
+                 "fused_seed_classify_pyramid"):
+        fn = getattr(ts, name)
+        monkeypatch.setattr(ts, name, lambda *a, _n=name, _f=fn, **k:
+                            called.append(_n) or _f(*a, **k))
+    ts.get_seeds(torch.from_numpy(_planted((6, 64, 128), 4, 6, 7)),
+                 max_num_seeds=16, **kw)
+    assert called == ([path] if path else [])
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    ("level_stencil_cuda", lambda t: (t, t, 300.0, 10, 2)),
+    ("dual_blur_xy_cuda", lambda t: (t, t, gaussian_kernel1d(0.75),
+                                     gaussian_kernel1d(7.5))),
+    ("fused_seed_classify_cuda", lambda t: (t, t, gaussian_kernel1d(0.75),
+                                            gaussian_kernel1d(7.5), 300.0,
+                                            10, 2)),
+])
+def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
+    t = torch.zeros((4, 16, 16))
+    before = dict(tk.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(tk, wrapper)(*args(t))
+    assert tk.launches == before
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("level_stencil", lambda t: (t, t, 300.0, 10)),
+    ("dual_gaussian_blur", lambda t: (t, 0.75, 7.5)),
+    ("fused_seed_classify", lambda t: (t, 0.75, 7.5, 300.0, 10)),
+])
+def test_dispatchers_raise_on_other_devices(fn, args):
+    """Neither kernel nor plain version for a tensor on another device."""
+    t = torch.zeros((4, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        getattr(tk, fn)(*args(t))
