@@ -7,7 +7,7 @@ Usage (from the repository root, on a machine with an NVIDIA H100)::
 
 Phases, each of which raises (exit code != 0) on a failed check:
 
-1. setup: card name and power limit, versions, TF32 off, build the five
+1. setup: card name and power limit, versions, TF32 off, build the six
    CUDA kernels from ``imageanalysis3_tpu_torch/csrc`` (one nvcc per
    source, started together);
 2. kernels: each kernel against its plain PyTorch version on the rendered
@@ -15,25 +15,38 @@ Phases, each of which raises (exit code != 0) on a failed check:
    the dual x+y blur and the level stencil, each also through its
    run-time-radius code on a small stack; the LM fit on round 0's 2048
    spots x 512 pixels x 8 iterations and on a Jacobi refit round's 512
-   warm-started spots), with CUDA-event timings of kernel and plain
-   version over fresh inputs;
+   warm-started spots; the cube gather at the 2048 seeds with r = 5 and
+   r = 4, on a thin stack and with origins far outside the stack, where
+   it must equal its plain version exactly), with CUDA-event timings of
+   kernel and plain version over fresh inputs (and of the gather's one
+   advanced-indexing PyTorch call);
 3. slice 1's main path: ``FovPipeline.process_round`` at bench.py's
    configuration (pyramid classifier, 1800 planted spots, th_seed 300,
-   2048 seed capacity), one warm round and 4 timed rounds; seed_pyramid
-   and lm_fit must launch in every round, and every round's fitted centres
-   must meet bench.py's accuracy gate (median_centroid_err_px <= 0.02 over
-   the first 500 truths);
+   2048 seed capacity), one warm round and 4 timed rounds; seed_pyramid,
+   lm_fit and gather_cubes must launch in every round, and every round's
+   fitted centres must meet bench.py's accuracy gate
+   (median_centroid_err_px <= 0.02 over the first 500 truths);
 4. the dual-blur path (``SeedConfig(pyramid_bg=False, filt_size=5)`` on a
-   30x2048x2048 stack, 2 timed rounds under the same gate; dual_blur must
-   launch in each) and the level-stencil path (``dual_gaussian_blur`` then
-   ``level_stencil`` on one corrected stack, held against the plain
-   stencil on the same blurs);
+   30x2048x2048 stack, 2 timed rounds under the same gate; dual_blur,
+   lm_fit and gather_cubes must launch in each) and the level-stencil path
+   (``dual_gaussian_blur`` then ``level_stencil`` on one corrected stack,
+   held against the plain stencil on the same blurs);
 5. the end-to-end path of bench_e2e.py with the exact classifier: 20
    rounds of 3-channel 60x2048x2048 stacks rendered on the card, seeded by
    seed_classify on every data channel, fitted, then decoded by
    ``DNAMerfishDecoder`` into 300 homolog region traces; >= 285 regions
    assigned, median trace error <= 1.25x the planted-jitter floor, median
-   drift error <= 0.1 px.
+   drift error <= 0.1 px;
+6. the bead-calibration path on ``synthetic.make_calibration_scene``'s
+   60x2048x2048 stacks: (a) ``IlluminationProfiler`` over 4 flat-field
+   stacks (interior error < 0.05); (b) ``generate_bleed_profile_from_rounds``
+   on 3 single-label rounds (the leak into a neighbouring channel < 0.25x
+   after unmixing); (c) ``generate_chromatic_constants`` on two bead pairs
+   (n_pairs >= 50 % of the beads, corrected beads within a median 0.1 px);
+   (d) the profiles saved and loaded as files, a ``FovPipeline`` built from
+   them, one 3-channel round under all three optics (median error <= 0.1
+   px per channel); seed_classify, lm_fit and gather_cubes must launch
+   where the path calls them, and none in (a).
 
 The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
@@ -63,7 +76,7 @@ TH_SEED = 300.0
 N_LVL = 10
 EDGE = 2
 #: kernels of slice 1's main path (pyramid classifier)
-PYRAMID_PATH = ("seed_pyramid", "lm_fit")
+PYRAMID_PATH = ("seed_pyramid", "lm_fit", "gather_cubes")
 #: the dual-blur path's stack: the package's DEFAULT_IMAGE_SIZE
 DUAL_SHAPE = (30, 2048, 2048)
 
@@ -198,7 +211,8 @@ def _dual_blur_phase(torch, smi: str) -> dict:
     """The dual-blur path: ``FovPipeline.process_round`` with
     ``SeedConfig(pyramid_bg=False, filt_size=5)`` on a 30x2048x2048 stack
     (the package's DEFAULT_IMAGE_SIZE) of 1800 planted spots; dual_blur must
-    launch once per round (one fit channel) and each round must meet
+    launch once per round (one fit channel), lm_fit and gather_cubes at
+    least once, and each round must meet
     bench.py's accuracy gate.  Then the level-stencil path on one corrected
     stack: the ``dual_gaussian_blur`` and ``level_stencil`` entry points,
     whose counts and level map must equal the plain stencil's
@@ -241,7 +255,8 @@ def _dual_blur_phase(torch, smi: str) -> dict:
         times.append(time.perf_counter() - t0)
         counts = kernel_launches()
         launches.append(counts)
-        if counts["dual_blur"] != 1 or counts["lm_fit"] < 1:
+        if (counts["dual_blur"] != 1 or counts["lm_fit"] < 1
+                or counts["gather_cubes"] < 1):
             raise AssertionError(f"dual-blur path round {k}: launches "
                                  f"{counts}")
         if counts["seed_classify"] or counts["seed_pyramid"]:
@@ -286,7 +301,8 @@ def _e2e_phase(torch, smi: str) -> dict:
     the card one round at a time), ``FovPipeline.process_round`` on each,
     then ``DNAMerfishDecoder.decode`` of all candidate spots into 300
     homolog region traces.  seed_classify must launch on every data
-    channel of every round and lm_fit with it; >= 285 of 300 regions
+    channel of every round and lm_fit and gather_cubes with it; >= 285 of
+    300 regions
     assigned; median trace error <= 1.25x the planted-jitter floor (the
     error of the mean of each region's planted, jittered spots); median
     drift error <= 0.1 px."""
@@ -326,7 +342,8 @@ def _e2e_phase(torch, smi: str) -> dict:
         t_proc.append(time.perf_counter() - t0)
         counts = kernel_launches()
         launches.append(counts)
-        if counts["seed_classify"] != n_data or counts["lm_fit"] < n_data:
+        if (counts["seed_classify"] != n_data or counts["lm_fit"] < n_data
+                or counts["gather_cubes"] < n_data):
             raise AssertionError(f"e2e round {r}: launches {counts}")
         drift_errs.append(float(np.linalg.norm(
             res.drift.cpu().numpy() + scene.drifts[r])))
@@ -408,6 +425,316 @@ def _e2e_phase(torch, smi: str) -> dict:
             "launches_per_round": launches,
             "seed_classify_launches": sum(c["seed_classify"]
                                           for c in launches)}
+
+
+def _gather_checks(torch, stacks, seeds, peaks, smi: str) -> dict:
+    """gather_cubes against its plain version, exactly (max_abs_err 0), on
+    four cases, each over three fresh inputs: the bench scene's 2048 seeds
+    with r = 5 and with r = 4 (the origins handed over unclipped, as
+    seed - r, so the kernel's own clipping runs), a thin stack (its first 6
+    planes, sz = 6 < 2r) and origins drawn far outside the stack (int32
+    extremes included).  Each case reports the kernel's CUDA-event median
+    ms, the plain version's, the one advanced-indexing PyTorch call's on a
+    precomputed index (``im.reshape(-1)[idx]``), and the byte bound (every
+    cube voxel read once and written once)."""
+    from imageanalysis3_tpu_torch.ops import gather_kernel as gk
+
+    dev = stacks[0].device
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+
+    def outside(n):
+        big = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 3), generator=gen,
+                            dtype=torch.int64)
+        big[: n // 4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, -7])
+        return big.to(torch.int32).to(dev)
+
+    thin = [im[:6].contiguous() for im in stacks]
+    cases = {
+        "r5": [(im, (s - 5).to(torch.int32).contiguous(),
+                gk.cube_sides(im.shape, 5)) for im, s in zip(stacks, seeds)],
+        "r4": [(im, (s - 4).to(torch.int32).contiguous(),
+                gk.cube_sides(im.shape, 4)) for im, s in zip(stacks, seeds)],
+        "thin_r5": [(im, (s - 5).to(torch.int32).contiguous(),
+                     gk.cube_sides(im.shape, 5)) for im, s in zip(thin, seeds)],
+        "outside_r5": [(im, outside(s.shape[0]), gk.cube_sides(im.shape, 5))
+                       for im, s in zip(stacks, seeds)],
+    }
+    out = {}
+    for name, inputs in cases.items():
+        err = 0.0
+        for inp in inputs:
+            got = gk.gather_cubes_cuda(*inp)
+            want = gk.gather_cubes_plain(*inp)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather_cubes {name}: differs from its "
+                                     f"plain version by "
+                                     f"{_max_abs(torch, got, want)}")
+            err = max(err, _max_abs(torch, got, want))
+        ms = _events_ms(torch, gk.gather_cubes_cuda, inputs, queue_ahead=True)
+        plain_ms = _events_ms(torch, gk.gather_cubes_plain, inputs,
+                              queue_ahead=False)
+        lib_in = [(im, gk.cube_index(im.shape, o, sd)) for im, o, sd in inputs]
+        lib_ms = _events_ms(torch, lambda im, idx: im.reshape(-1)[idx], lib_in,
+                            queue_ahead=True)
+        n, sides = inputs[0][1].shape[0], inputs[0][2]
+        vol = sides[0] * sides[1] * sides[2]
+        bound = _bound(2 * 4 * n * vol + 12 * n, 0.0, peaks)
+        out[name] = {"cubes": n, "sides": list(sides), "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"gather_cubes {name}: PASS  {n} cubes of {sides}, max_abs_err "
+              f"{err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"im.reshape(-1)[idx] {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"by {bound[1]}  [{smi}]")
+    return out
+
+
+def _calibration_phase(torch, smi: str) -> dict:
+    """The bead-calibration path at full width (60x2048x2048 stacks rendered
+    on the card from fixed seeds; rendering timed apart from each stage):
+    (a) ``IlluminationProfiler`` (smooth_sigma 60) over 4 flat-field stacks
+    under the planted vignette (falloff 0.35), each streamed alone: mean
+    |error| of the normalised interior (128-px border dropped) < 0.05, and
+    no kernel launched; (b) ``generate_bleed_profile_from_rounds`` on 3
+    single-label rounds under ``bleed_matrix(3, 0.08)``: after
+    ``bleedthrough_unmix`` the leak of the 20 brightest labelled spots into
+    each neighbouring channel < 0.25x the leak before; (c)
+    ``generate_chromatic_constants(max_num_seeds=512)`` on the 500-bead
+    pair of each non-reference channel under its planted order-2 shift:
+    n_pairs >= 50 % of the beads and the planted target beads, corrected by
+    ``warp_spot_coords``, within a median 0.1 px of the truth; (d) the
+    profiles saved with ``save_correction_profile`` into a temporary
+    folder, loaded back, a ``FovPipeline`` (bleedthrough on, exact
+    classifier) built from them, and one 3-channel round under the same
+    optics with drift 0: each channel's corrected spots, over the truths
+    matched within 1 px, within a median 0.1 px.  seed_classify, lm_fit and
+    gather_cubes must launch in (b)-(d)."""
+    import tempfile
+
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.config import (CORR_CHANNELS,
+                                                 CorrectionConfig,
+                                                 ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.io import (load_correction_profile,
+                                             save_correction_profile)
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+    from imageanalysis3_tpu_torch.ops.corrections import bleedthrough_unmix
+    from imageanalysis3_tpu_torch.ops.profiles import (
+        IlluminationProfiler, generate_bleed_profile_from_rounds,
+        generate_chromatic_constants, invert_mixing_profile)
+    from imageanalysis3_tpu_torch.ops.warp import warp_spot_coords
+    from imageanalysis3_tpu_torch.pipeline import FovPipeline
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    sync()
+    rec = {"earlier_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    scene = syn.make_calibration_scene()
+    shape, ref_ci = scene.shape, scene.ref_channel
+    chans = tuple(CORR_CHANNELS)
+    rec.update(shape=shape, seconds={}, render_seconds={}, launches={})
+
+    def render(stage, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        rec["render_seconds"][stage] = time.perf_counter() - t0
+        return out
+
+    def run(stage, fn):
+        sync()
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        rec["seconds"][stage] = time.perf_counter() - t0
+        rec["launches"][stage] = counts = kernel_launches()
+        return out, counts
+
+    def need(stage, counts, **least):
+        """At least `least` launches of each kernel."""
+        for name, n in least.items():
+            if counts[name] < n:
+                raise AssertionError(f"calibration ({stage}): {name} launched "
+                                     f"{counts[name]} < {n} times: {counts}")
+
+    # (a) illumination
+    stacks = render("illumination", lambda: [
+        scene.illumination_stack(k, dev)
+        for k in range(len(scene.illum_spots))])
+
+    def profile():
+        prof = IlluminationProfiler(shape[1:], device=dev, smooth_sigma=60.0)
+        while stacks:
+            prof.add_stack(stacks.pop(0))
+        return prof.finalize()
+
+    illum, counts = run("illumination", profile)
+    if any(counts.values()):
+        raise AssertionError(f"calibration (a): kernels launched {counts}")
+    b = 128                                 # the border the gate drops
+    got = illum[b:-b, b:-b] / illum[b:-b, b:-b].max()
+    want = scene.illumination[b:-b, b:-b] / scene.illumination[b:-b, b:-b].max()
+    rec["illumination_interior_err"] = ill_err = float(np.abs(got - want)
+                                                       .mean())
+    if not ill_err < 0.05:
+        raise AssertionError(f"calibration (a): interior error {ill_err}")
+
+    # (b) bleedthrough
+    rounds = render("bleed", lambda: [scene.bleed_round(i, dev)
+                                      for i in range(3)])
+    bleed, counts = run("bleed", lambda: generate_bleed_profile_from_rounds(
+        rounds))
+    need("b", counts, seed_classify=3, lm_fit=3, gather_cubes=15)
+    prof_t = torch.as_tensor(bleed, device=dev)
+    # the stage's batched (X*Y) 3x3 inverse on its own, warm
+    sync()
+    t0 = time.perf_counter()
+    invert_mixing_profile(prof_t)
+    sync()
+    rec["bleed_inverse_seconds"] = time.perf_counter() - t0
+    leaks = {}
+    for i, raw in enumerate(rounds):
+        obs = raw.to(torch.float32)
+        unmixed = bleedthrough_unmix(obs, prof_t)
+        t = scene.bleed_spots[i]
+        top = np.argsort(-t["heights"])[:20]
+        p = np.rint(scene.shifted(i, t["centers"][top])).astype(np.int64)
+        pz, px_, py = (torch.as_tensor(p[:, k], device=dev) for k in range(3))
+        for c in range(3):
+            if c == i or scene.mixing[c, i] == 0:
+                continue
+            before = obs[c][pz, px_, py] - obs[c][:, ::16, ::16].median()
+            after = unmixed[c][pz, px_, py] \
+                - unmixed[c][:, ::16, ::16].median()
+            leaks[f"{i}->{c}"] = (float(before.abs().median()),
+                                  float(after.abs().median()))
+        del obs, unmixed
+    del rounds
+    rec["leak_before_after"] = leaks
+    for key, (before, after) in leaks.items():
+        if not after < 0.25 * before:
+            raise AssertionError(f"calibration (b): leak {key} {after} after "
+                                 f"unmixing, {before} before")
+    centre = np.linalg.inv(bleed[:, :, shape[1] // 2, shape[2] // 2])
+    rec["mixing_at_centre"] = centre.tolist()
+
+    # (c) chromatic constants, one bead pair per non-reference channel
+    constants, n_pairs, bead_errs = {}, {}, {}
+    beads = scene.beads["centers"]
+    for ci in range(3):
+        if ci == ref_ci:
+            continue
+        tar, ref = render(f"chromatic_{chans[ci]}",
+                          lambda: scene.bead_pair(ci, dev))
+        (const, n), counts = run(
+            f"chromatic_{chans[ci]}",
+            lambda: generate_chromatic_constants(
+                tar, ref, max_num_seeds=512))
+        del tar, ref
+        need(f"c, {chans[ci]}", counts, seed_classify=2, lm_fit=2,
+             gather_cubes=2)
+        corrected = warp_spot_coords(
+            torch.as_tensor(scene.shifted(ci, beads), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(const, device=dev),
+            torch.as_tensor(scene.ref_center, dtype=torch.float32,
+                            device=dev),
+            torch.zeros(3, device=dev)).cpu().numpy()
+        err = float(np.median(np.linalg.norm(corrected - beads, axis=1)))
+        constants[chans[ci]], n_pairs[chans[ci]] = const, n
+        bead_errs[chans[ci]] = err
+        if n < 0.5 * len(beads):
+            raise AssertionError(f"calibration (c), {chans[ci]}: {n} pairs of "
+                                 f"{len(beads)} beads")
+        if not err < 0.1:
+            raise AssertionError(f"calibration (c), {chans[ci]}: median "
+                                 f"corrected bead error {err} px")
+    rec.update(n_pairs=n_pairs, n_beads=len(beads),
+               bead_median_err_px=bead_errs)
+
+    # (d) profiles through files into FovPipeline, one corrected round
+    raw = render("round", lambda: scene.round_stack(dev))
+    cfg = ExperimentConfig(
+        image_size=shape, correction=CorrectionConfig(bleedthrough=True),
+        seed=SeedConfig(th_seed=300.0, max_num_seeds=2048, pyramid_bg=False),
+        fit=FitConfig())
+
+    def through_files():
+        """The three profiles saved and loaded back under the reference's
+        file names."""
+        with tempfile.TemporaryDirectory() as folder:
+            kw = dict(corr_channels=chans, ref_channel=chans[ref_ci],
+                      im_size=shape)
+            save_correction_profile("illumination",
+                                    {c: illum for c in chans}, folder, **kw)
+            save_correction_profile("bleedthrough", bleed, folder, **kw)
+            save_correction_profile("chromatic_constants", constants, folder,
+                                    **kw)
+            return (load_correction_profile("illumination", folder, **kw),
+                    load_correction_profile("bleedthrough", folder, **kw),
+                    load_correction_profile("chromatic_constants", folder,
+                                            **kw))
+
+    (ill, bleed_f, consts), _ = run("files", through_files)
+
+    def corrected_round():
+        pipe = FovPipeline(
+            cfg, n_channels=3, drift_channel_index=ref_ci,
+            fit_channel_indices=(0, 1, 2),
+            illumination=np.stack([ill[c] for c in chans]), bleed=bleed_f,
+            chromatic_constants=np.stack([
+                np.zeros((3, 10), np.float32) if consts[c] is None
+                else consts[c] for c in chans]),
+            image_shape=shape, device=dev)
+        ref_im = pipe.prepare_reference(pipe.correct_reference(raw))
+        return pipe.process_round(raw, ref_im)
+
+    res, counts = run("round", corrected_round)
+    need("d", counts, seed_classify=3, lm_fit=3, gather_cubes=3)
+    spot_errs = {}
+    for ci in range(3):
+        got = res.spots[ci][res.valid[ci]][:, 1:4].cpu().numpy()
+        truth = scene.round_spots[ci]["centers"]
+        d = np.linalg.norm(truth[:, None] - got[None], axis=-1).min(axis=1)
+        matched = d[d < 1.0]
+        med = float(np.median(matched)) if len(matched) else float("nan")
+        spot_errs[chans[ci]] = {"median_err_px": med,
+                                "matched": int(len(matched)),
+                                "planted": int(len(truth)),
+                                "n_valid": int(res.valid[ci].sum())}
+        if not med <= 0.1:
+            raise AssertionError(f"calibration (d), {chans[ci]}: median spot "
+                                 f"error {med} px")
+    rec["round_spots"] = spot_errs
+    rec["drift"] = res.drift.cpu().numpy().tolist()
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["total_launches"] = {k: sum(c[k] for c in rec["launches"].values())
+                             for k in kernel_launches()}
+    print(f"calibration (a) illumination: {rec['seconds']['illumination']:.3f}"
+          f" s for {len(scene.illum_spots)} stacks, interior error "
+          f"{ill_err:.5f}, launches {rec['launches']['illumination']}")
+    print(f"calibration (b) bleed: {rec['seconds']['bleed']:.3f} s (its "
+          f"batched inverse alone {rec['bleed_inverse_seconds']:.3f} s), leak "
+          f"before/after {leaks}; mixing at the FOV centre "
+          f"{np.round(centre, 4).tolist()} (planted off-diagonal 0.08)")
+    print(f"calibration (c) chromatic: "
+          f"{ {k: round(v, 3) for k, v in rec['seconds'].items() if k.startswith('chromatic')} } s, "
+          f"n_pairs {n_pairs} of {len(beads)} beads, median corrected bead "
+          f"error {bead_errs} px")
+    print(f"calibration (d) profile files {rec['seconds']['files']:.3f} s, "
+          f"FovPipeline round {rec['seconds']['round']:.3f} s, spots "
+          f"{spot_errs}, drift "
+          f"{rec['drift']}; render {rec['render_seconds']} s; peak device "
+          f"memory {rec['peak_memory_bytes'] / 2 ** 30:.2f} GiB; launches "
+          f"{rec['total_launches']}  [{smi}]")
+    return rec
 
 
 def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
@@ -762,6 +1089,9 @@ def main(argv=None) -> int:
           f"{pyr_bound[1]}); lm_fit PASS {lm_ms:.4f} ms (plain "
           f"{lm_plain_ms:.4f} ms, bound {lm_bound[0]:.4f} ms by "
           f"{lm_bound[1]})  [{smi}]")
+    gather = _gather_checks(torch, corrected,
+                            [st[0][3].to(torch.int32) for st in lm_sets],
+                            peaks, smi)
     del pp, ep, lm_sets, lm_in, jac_in, pyr_in, corrected
 
     # ---- 3. main path ----------------------------------------------------
@@ -829,6 +1159,10 @@ def main(argv=None) -> int:
 
     # ---- 5. the end-to-end path (exact classifier) ------------------------
     record["e2e"] = e2e = _e2e_phase(torch, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 6. the bead-calibration path ---------------------------------------
+    record["calibration"] = calib = _calibration_phase(torch, smi)
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -864,6 +1198,15 @@ def main(argv=None) -> int:
          "max_abs_err": lvl["max_abs_err"], "ms": lvl_ms,
          "plain_ms": lvl_plain_ms, "bound_ms": lvl_bound[0],
          "bound_by": lvl_bound[1], "library_ms": None},
+        {"name": "gather_cubes", "route": "cuda",
+         "source": "imageanalysis3_tpu_torch/csrc/gather_cubes.cu",
+         "replaces": "scripts/ab_gather2.py:62",
+         "launches": calib["total_launches"]["gather_cubes"],
+         "max_abs_err": max(c["max_abs_err"] for c in gather.values()),
+         "ms": gather["r5"]["ms"], "plain_ms": gather["r5"]["plain_ms"],
+         "bound_ms": gather["r5"]["bound_ms"],
+         "bound_by": gather["r5"]["bound_by"],
+         "library_ms": gather["r5"]["library_ms"]},
     ]
     record.update(
         shape=shape, n_spots=len(truth["centers"]), kernels=kernels,
@@ -875,15 +1218,18 @@ def main(argv=None) -> int:
                              "qualify (intensity units)",
             "dual_blur": "max |blur kernel - plain| over both stacks "
                          "(intensity units)",
-            "level_stencil": "max |diff kernel - plain| (intensity units)"},
+            "level_stencil": "max |diff kernel - plain| (intensity units)",
+            "gather_cubes": "max |cube kernel - plain| over the four cases "
+                            "(intensity units)"},
         kernel_checks={"seed_classify": cls,
                        "seed_classify_generic_radius": cls_gen,
                        "dual_blur": blur, "dual_blur_generic_radius": blur_gen,
-                       "level_stencil": lvl},
+                       "level_stencil": lvl, "gather_cubes": gather},
         seconds_per_stack=sec, round_seconds=times, stage_seconds=stages,
         launches_per_round=per_round, median_centroid_err_px=med_err,
         n_valid=n_valid, timed_round_accuracy=round_accuracy,
-        peak_memory_bytes=torch.cuda.max_memory_allocated())
+        peak_memory_bytes=max(calib["earlier_peak_memory_bytes"],
+                              torch.cuda.max_memory_allocated()))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -3,9 +3,11 @@
 One hybridization round of one FOV -- corrections, drift consensus,
 seeding (pyramid-background or exact classifier), the fused LM Gaussian fit
 and the coordinate warp -- and the end-to-end path beyond it: MERFISH
-decoding of the rounds' spots and homolog E/M traces (``decode``).  In
-PyTorch, with hand-written CUDA kernels (``csrc/``) for the seeding
-classifiers, the dual blur, the level stencil and the LM fit.  Entry points
+decoding of the rounds' spots and homolog E/M traces (``decode``) -- and
+the bead calibration that makes the round's correction profiles
+(``ops.profiles``, written and read by ``io``).  In PyTorch, with
+hand-written CUDA kernels (``csrc/``) for the seeding classifiers, the dual
+blur, the level stencil, the LM fit and the cube gather.  Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``; on the CPU
 every kernel runs as its plain PyTorch version.  The package imports
 neither JAX, nor ``imageanalysis3_tpu``, nor pandas.

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_PIXEL_SIZE_NM
-from ..pipeline.fov import resolve_device
+from ..device import resolve_device
 from .homolog import HomologResult, _np, decode_chromosome_homologs
 from .merfish import MerfishDecoder, SpotGroups
 from .new_decoder import codebook_dataframe_to_tables

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..pipeline.fov import resolve_device
+from ..device import resolve_device
 
 DEFAULT_METRIC_WEIGHTS = (1.0, 1.0, 1.0, 1.0, 1.0)   # decode.py:709
 N_NEIGHBORS = 10                                      # decode.py:1901

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..pipeline.fov import resolve_device
+from ..device import resolve_device
 
 DEFAULT_SEARCH_TH_NM = 250.0   # reference default_search_th (decode.py:20)
 

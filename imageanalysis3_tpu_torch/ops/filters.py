@@ -16,6 +16,7 @@ so short axes (radius > n) behave identically.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import lru_cache
 from typing import Sequence, Union
 
@@ -36,25 +37,27 @@ def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     return w.astype(np.float32)
 
 
-def _map_boundary_index(idx: int, n: int, mode: str) -> int:
-    """Map an out-of-range index to a source index per scipy boundary mode
-    (None = no contribution, for mode='constant')."""
+def _map_boundary_index(idx, n: int, mode: str) -> np.ndarray:
+    """Map (arrays of) out-of-range indices to source indices per scipy
+    boundary mode; -1 means no contribution (mode='constant')."""
+    idx = np.asarray(idx, np.int64)
     if mode == "constant":
-        return idx if 0 <= idx < n else None
+        return np.where((idx >= 0) & (idx < n), idx, -1)
     if mode == "wrap":
         return idx % n
+    if mode not in ("nearest", "reflect", "mirror"):
+        raise ValueError(mode)
     for _ in range(64):  # repeated reflection for radius > n
-        if 0 <= idx < n:
-            return idx
+        lo, hi = idx < 0, idx >= n
+        if not (lo.any() or hi.any()):
+            break
         if mode == "nearest":
-            idx = min(max(idx, 0), n - 1)
+            idx = np.clip(idx, 0, n - 1)
         elif mode == "reflect":       # scipy 'reflect' = symmetric: 1,0|0,1
-            idx = -idx - 1 if idx < 0 else 2 * n - 1 - idx
-        elif mode == "mirror":        # scipy 'mirror' = reflect-101: 1|0|1
-            idx = -idx if idx < 0 else 2 * n - 2 - idx
-        else:
-            raise ValueError(mode)
-    return min(max(idx, 0), n - 1)
+            idx = np.where(lo, -idx - 1, np.where(hi, 2 * n - 1 - idx, idx))
+        else:                         # scipy 'mirror' = reflect-101: 1|0|1
+            idx = np.where(lo, -idx, np.where(hi, 2 * n - 2 - idx, idx))
+    return np.clip(idx, 0, n - 1)
 
 
 @lru_cache(maxsize=256)
@@ -62,14 +65,40 @@ def _band_matrix(n: int, kernel_key: tuple, mode: str) -> np.ndarray:
     """(n, n) matrix W with out = W @ x == correlate1d(x, kernel, mode)."""
     kernel = np.asarray(kernel_key, np.float64)
     k = len(kernel)
-    radius = k // 2
+    rows = np.repeat(np.arange(n), k)
+    taps = np.tile(np.arange(k), n)
+    src = _map_boundary_index(rows + taps - k // 2, n, mode)
+    keep = src >= 0
     w = np.zeros((n, n), np.float64)
-    for i in range(n):
-        for t in range(k):
-            s = _map_boundary_index(i + t - radius, n, mode)
-            if s is not None:
-                w[i, s] += kernel[t]
+    # unbuffered, in (row, tap) order: the sums of the per-element loop
+    np.add.at(w, (rows[keep], src[keep]), kernel[taps[keep]])
     return w.astype(np.float32)
+
+
+@contextmanager
+def full_f32_matmul():
+    """Run float32 matrix products in full float32 inside the block, not
+    TF32, whatever the caller set, and restore the caller's setting after,
+    through the API the caller used: PyTorch refuses to read its legacy
+    ``allow_tf32`` flag once the newer ``fp32_precision`` one was set."""
+    flags = torch.backends.cuda.matmul
+    try:
+        prev = flags.allow_tf32
+    except RuntimeError:
+        prev = None
+    if prev is None:
+        prev_precision = flags.fp32_precision
+        flags.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            flags.fp32_precision = prev_precision
+    else:
+        flags.allow_tf32 = False
+        try:
+            yield
+        finally:
+            flags.allow_tf32 = prev
 
 
 def _pad_axis(im: torch.Tensor, axis: int, lo: int, hi: int,
@@ -83,8 +112,8 @@ def _pad_axis(im: torch.Tensor, axis: int, lo: int, hi: int,
         out = torch.full(shape, fill, dtype=im.dtype, device=im.device)
         out.narrow(axis, lo, n).copy_(im)
         return out
-    idx = [_map_boundary_index(i, n, mode) for i in range(-lo, n + hi)]
-    return im.index_select(axis, torch.tensor(idx, device=im.device))
+    idx = _map_boundary_index(np.arange(-lo, n + hi), n, mode)
+    return im.index_select(axis, torch.from_numpy(idx).to(im.device))
 
 
 def _shift_add(im: torch.Tensor, kernel: np.ndarray, axis: int,
@@ -104,8 +133,8 @@ def _shift_add(im: torch.Tensor, kernel: np.ndarray, axis: int,
 def _conv1d_along_axis(im: torch.Tensor, kernel: np.ndarray, axis: int,
                        mode: str) -> torch.Tensor:
     """Correlate `im` with 1D `kernel` along `axis` (scipy boundary mode):
-    shift-add for few taps (k <= 9), else one f32 matmul with the (n, n)
-    band matrix (boundary modes folded in)."""
+    shift-add for few taps (k <= 9), else one full-f32 matmul with the
+    (n, n) band matrix (boundary modes folded in)."""
     kernel = np.asarray(kernel, np.float32)
     k = kernel.shape[0]
     n = im.shape[axis]
@@ -114,7 +143,8 @@ def _conv1d_along_axis(im: torch.Tensor, kernel: np.ndarray, axis: int,
     w = torch.from_numpy(_band_matrix(n, tuple(kernel.tolist()), mode)
                          ).to(im.device)
     moved = im.movedim(axis, -1)
-    return torch.matmul(moved, w.T).movedim(-1, axis)
+    with full_f32_matmul():
+        return torch.matmul(moved, w.T).movedim(-1, axis)
 
 
 def gaussian_filter(im: torch.Tensor,

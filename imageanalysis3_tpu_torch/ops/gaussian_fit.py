@@ -12,25 +12,37 @@ target: reference External/Fitting_v4.py:165-683 --
     with all *other* reconstructions subtracted until centers move < 0.1 px.
 
 Every spot is fit concurrently: pixels are gathered into fixed in-ball
-blocks with bounds/ownership masks, and the LM engine is ops/lm_kernel.py
-(the CUDA kernel for CUDA tensors, its plain version on the CPU).  The
-sequential subtract-refit becomes block-synchronous (Jacobi) rounds.
+blocks with bounds/ownership masks (the cubes by ops/gather_kernel.py), and
+the LM engine is ops/lm_kernel.py (each the CUDA kernel for CUDA tensors,
+its plain version on the CPU).  The sequential subtract-refit becomes
+block-synchronous (Jacobi) rounds.  The entry points that take one image
+(``fit_fov_image``, ``get_centers``) and the helpers of profile generation
+(``select_sparse_centers``, ``find_image_background``, ``gfit_fast``)
+follow the JAX module's lines 630-779.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..device import as_tensor
+from .filters import counting_median
+from .gather_kernel import clip_origins, cube_sides, gather_cubes
 from .lm_kernel import (geometry_jacobian, lm_fit, quadform_coeffs, to_sine,
                         to_ws)
+from .matching import pairwise_distances
+from .seeding import Seeds, get_seeds
 
 __all__ = ["FitResult", "iter_fit_seed_points", "init_params",
            "gaussian_model", "to_natural", "rebase_center_params",
            "ball_offsets", "gather_blocks", "neighbor_lists",
-           "ownership_mask", "geometry_jacobian"]
+           "ownership_mask", "geometry_jacobian", "find_image_background",
+           "fit_fov_image", "get_centers", "select_sparse_centers",
+           "gfit_fast"]
 
 
 def _to_center(cp, center_est, delta):
@@ -155,22 +167,53 @@ def ball_offsets(radius: int) -> np.ndarray:
     return g[keep].astype(np.int32)
 
 
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """``astype(int32)`` as XLA converts: truncation toward zero, NaN to 0,
+    out-of-range values saturated (PyTorch's own conversion of those is
+    undefined and differs between CPU and CUDA)."""
+    if not x.is_floating_point():
+        return x.to(torch.int32)
+    x = torch.nan_to_num(x.to(torch.float32), nan=0.0)
+    # the largest f32 below 2**31 (2**31 itself overflows)
+    return x.clamp(-2147483648.0, 2147483520.0).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _block_constants(shape: Tuple[int, ...], radius: int,
+                     device: torch.device):
+    """The ball offsets (P, 3), the stack shape (3,) and the cube sides less
+    one (3,), made on `device` once per (shape, radius, device): a call of
+    :func:`gather_blocks` copies nothing from the host."""
+    sides = cube_sides(shape, radius)
+    return (torch.as_tensor(ball_offsets(radius), device=device),
+            torch.tensor(shape, device=device),
+            torch.tensor([d - 1 for d in sides], device=device))
+
+
 def gather_blocks(im: torch.Tensor, seeds_zxy: torch.Tensor, radius: int):
     """Gather (N, P) pixel blocks around integer seed positions.
 
     Returns (pixels, coords, base_mask), base_mask = in-ball & in-bounds
-    (reference iter_fit :580-608).  Out-of-bounds pixels read a clamped
-    voxel; they are masked out everywhere downstream.
+    (reference iter_fit :580-608).  The JAX package's cube form: each seed's
+    (2r)^3 cube (2r clamped to the stack), its origin clipped into the
+    stack, comes from :func:`gather_kernel.gather_cubes`; one gather then
+    packs the in-ball offsets, each clipped into its cube.  Every in-bounds
+    ball pixel lies inside the cube; an out-of-bounds one reads a cube
+    voxel, the same voxel as in the JAX package, and is masked out
+    everywhere downstream.
     """
-    dev = im.device
-    offs = torch.as_tensor(ball_offsets(radius), device=dev)      # (P, 3)
-    base = seeds_zxy.to(torch.int64)
+    n = seeds_zxy.shape[0]
+    sides = cube_sides(im.shape, radius)
+    offs, shape, last = _block_constants(tuple(im.shape), int(radius),
+                                         im.device)
+    base = _to_int32(seeds_zxy).to(torch.int64)
     pos = base[:, None, :] + offs[None, :, :]                     # (N, P, 3)
-    shape = torch.tensor(im.shape, device=dev)
     inb = ((pos >= 0) & (pos < shape)).all(dim=-1)
-    pc = torch.minimum(pos.clamp_min(0), shape - 1)
-    idx = (pc[..., 0] * im.shape[1] + pc[..., 1]) * im.shape[2] + pc[..., 2]
-    pixels = im.to(torch.float32).reshape(-1)[idx]
+    origin = clip_origins(base - radius, im.shape, sides)         # (N, 3)
+    cubes = gather_cubes(im, origin, sides)                  # (N, sz, sx, sy)
+    rel = torch.minimum((pos - origin[:, None, :]).clamp_min(0), last)
+    idx = (rel[..., 0] * sides[1] + rel[..., 1]) * sides[2] + rel[..., 2]
+    pixels = torch.gather(cubes.reshape(n, -1), 1, idx)
     return pixels, pos.to(torch.float32), inb
 
 
@@ -336,3 +379,140 @@ def iter_fit_seed_points(im: torch.Tensor, seeds_zxy: torch.Tensor,
                      n_rounds=torch.tensor(rounds_done, dtype=torch.int32,
                                            device=dev),
                      n_contested=n_contested)
+
+
+# ---------------------------------------------------------------------------
+# The fit's other entry points: one image in, fitted spots out
+# ---------------------------------------------------------------------------
+
+
+def find_image_background(im, bin_size: int = 10,
+                          vmax: float = 65535.0) -> torch.Tensor:
+    """Background level = centre of the histogram's dominant local peak
+    (reference io_tools/load.py:642-687): `bin_size`-wide bins over the
+    dtype range, the highest-count interior local maximum (ties to the
+    lowest bin), the counting median when the histogram has none.
+    NumPy input goes to the card unless `im` is a tensor."""
+    imf = as_tensor(im).to(torch.float32)
+    n_bins = int(vmax) // int(bin_size)
+    idx = (imf / bin_size).to(torch.int32).clamp(0, n_bins - 1)
+    cts = torch.bincount(idx.reshape(-1), minlength=n_bins).to(torch.int64)
+    big = torch.iinfo(torch.int32).max
+    left = torch.roll(cts, 1)
+    left[0] = big
+    right = torch.roll(cts, -1)
+    right[-1] = big
+    is_peak = (cts > left) & (cts >= right)
+    best = torch.argmax(torch.where(is_peak, cts, -1))
+    peak_val = (best.to(torch.float32) + 0.5) * bin_size
+    return torch.where(is_peak.any(), peak_val, counting_median(imf))
+
+
+def fit_fov_image(im, seeds: Optional[Seeds] = None,
+                  max_num_seeds: int = 512, th_seed: float = 300.0,
+                  radius: int = 5, lm_iters: int = 30, n_max_iter: int = 10,
+                  normalize_background: bool = False, device=None,
+                  **seed_kwargs) -> FitResult:
+    """Seed + iteratively fit one image (reference spot_tools/fitting.py:
+    169) -> fixed-capacity FitResult of 11-column rows [h, z, x, y, bk, wz,
+    wx, wy, sin_t, sin_p, eps].  `seed_kwargs` go to ``get_seeds`` as in
+    the JAX package; with `normalize_background` spot heights are divided
+    by the image background (reference :240-247).  NumPy input goes to
+    `device` (default the card); a tensor stays where it is."""
+    im = as_tensor(im, device)
+    if seeds is None:
+        seeds = get_seeds(im, max_num_seeds=max_num_seeds, th_seed=th_seed,
+                          **seed_kwargs)
+    res = iter_fit_seed_points(im, seeds.coords.to(torch.float32),
+                               seeds.valid, radius=radius,
+                               lm_iters=lm_iters, n_max_iter=n_max_iter)
+    if normalize_background:
+        back = find_image_background(im).clamp_min(1e-6)
+        spots = res.spots.clone()
+        spots[:, 0] = spots[:, 0] / back
+        res = res._replace(spots=spots)
+    return res
+
+
+def _dedupe_mask(centers: torch.Tensor, valid: torch.Tensor,
+                 threshold: float) -> torch.Tensor:
+    """Keep the first of any group of centres closer than `threshold`."""
+    n = centers.shape[0]
+    close = ((pairwise_distances(centers, centers) < threshold)
+             & valid[:, None] & valid[None, :])
+    ar = torch.arange(n, device=centers.device)
+    earlier = ar[None, :] < ar[:, None]
+    return ~(close & earlier).any(dim=1)
+
+
+def get_centers(im, seeds: Optional[Seeds] = None, th_seed: float = 150.0,
+                max_num_seeds: int = 512, radius: int = 5,
+                remove_close_pts: bool = True, close_threshold: float = 0.1,
+                device=None, **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fitted spot centres of one image -> ((N, 3) zxy, valid mask)
+    (reference spot_tools/fitting.py:268-330): seed + fit, then drop
+    near-duplicate centres within `close_threshold`."""
+    res = fit_fov_image(im, seeds=seeds, max_num_seeds=max_num_seeds,
+                        th_seed=th_seed, radius=radius, device=device,
+                        **kwargs)
+    centers = res.spots[:, 1:4]
+    valid = res.valid
+    if remove_close_pts:
+        valid = valid & _dedupe_mask(centers, valid, close_threshold)
+    return centers, valid
+
+
+def select_sparse_centers(centers, valid,
+                          distance_th: float = 25.0) -> torch.Tensor:
+    """Greedy selection of mutually distant centres, first come first
+    served (reference spot_tools/fitting.py:332-363): walk the centres in
+    order, keep one iff it is valid and at least `distance_th` from every
+    centre kept before it.  Returns the kept mask.
+
+    The walk is a loop of small device operations over the precomputed
+    (N, N) "too close" matrix, with no host synchronisation inside it."""
+    centers = as_tensor(centers)
+    valid = as_tensor(valid, centers.device).to(torch.bool)
+    n = centers.shape[0]
+    near = pairwise_distances(centers, centers) < distance_th
+    near.fill_diagonal_(False)
+    kept = torch.zeros(n, dtype=torch.bool, device=centers.device)
+    for i in range(n):
+        kept[i] = valid[i] & ~(kept & near[i]).any()
+    return kept
+
+
+def gfit_fast(pixels, coords, mask, bk_fraction: float = 0.1,
+              reconstruct: bool = False) -> torch.Tensor:
+    """Moment-based fast Gaussian fit of N pixel blocks (reference gfit_fast,
+    External/Fitting_v4.py:433-490), batched over the blocks where the JAX
+    package vmaps one: background = the `bk_fraction` quantile of the valid
+    pixels, weights = clipped excess over it, position = weighted centroid,
+    shape = weighted covariance.  `pixels` (N, P), `coords` (N, P, 3),
+    `mask` (N, P) -> (N, 12) rows [h, z, x, y, bk, a, b, c, d, e, f, eps]
+    (eps = mean |residual| with `reconstruct`, else NaN)."""
+    pixels = as_tensor(pixels).to(torch.float32)
+    coords = as_tensor(coords, pixels.device).to(torch.float32)
+    mask = as_tensor(mask, pixels.device).to(torch.bool)
+    maskf = mask.to(torch.float32)
+    n = maskf.sum(dim=1).clamp_min(1.0)
+    s = torch.sort(torch.where(mask, pixels, float("inf")), dim=1).values
+    k = (n * bk_fraction).to(torch.int64).clamp(0, pixels.shape[1] - 1)
+    bk = s.gather(1, k[:, None])[:, 0]
+    w = (pixels - bk[:, None]).clamp_min(0.0) * maskf
+    h = w.amax(dim=1)
+    wn = w / w.sum(dim=1).clamp_min(1e-12)[:, None]
+    zxy = (coords * wn[..., None]).sum(dim=1)
+    d = coords - zxy[:, None, :]
+    cov = torch.einsum("npi,npj,np->nij", d, d, wn)
+    if reconstruct:
+        eye = torch.eye(3, dtype=torch.float32, device=pixels.device)
+        icov = torch.linalg.inv(cov + 1e-9 * eye)
+        q = torch.einsum("npi,nij,npj->np", d, icov, d)
+        fit = h[:, None] * torch.exp(-0.5 * q) + bk[:, None]
+        eps = ((pixels - fit).abs() * maskf).sum(dim=1) / n
+    else:
+        eps = torch.full_like(h, float("nan"))
+    return torch.stack([h, zxy[:, 0], zxy[:, 1], zxy[:, 2], bk,
+                        cov[:, 0, 0], cov[:, 1, 1], cov[:, 2, 2],
+                        cov[:, 0, 1], cov[:, 0, 2], cov[:, 1, 2], eps], dim=1)

@@ -37,7 +37,7 @@ import torch
 
 from .. import _build
 from .filters import (_band_matrix, _conv1d_along_axis, _shift_add,
-                      _window_reduce, gaussian_kernel1d)
+                      _window_reduce, full_f32_matmul, gaussian_kernel1d)
 
 #: launches of each kernel's CUDA wrapper since the last reset
 launches: Dict[str, int] = {"seed_pyramid": 0, "seed_classify": 0,
@@ -284,13 +284,14 @@ def z_pass_pair(im: torch.Tensor, k_fg: np.ndarray, k_bg: np.ndarray
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both 'reflect' z passes as ONE f32 banded matmul (2Z, Z) @ (Z, X*Y),
     the einsum the JAX package runs outside its kernel -> (fgz, bgz), two
-    contiguous (Z, X, Y) views of one (2, Z, X, Y) buffer.  Callers on the
-    card keep TF32 off (torch.backends.cuda.matmul.allow_tf32)."""
+    contiguous (Z, X, Y) views of one (2, Z, X, Y) buffer.  The product
+    runs in full f32 whatever the caller's TF32 setting."""
     z, x, y = im.shape
     w = np.concatenate([_band_matrix(z, tuple(k_fg.tolist()), "reflect"),
                         _band_matrix(z, tuple(k_bg.tolist()), "reflect")])
     w = torch.from_numpy(w).to(im.device)
-    out = torch.matmul(w, im.reshape(z, x * y)).reshape(2, z, x, y)
+    with full_f32_matmul():
+        out = torch.matmul(w, im.reshape(z, x * y)).reshape(2, z, x, y)
     return out[0], out[1]
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig
+from ..device import resolve_device
 from ..ops.corrections import correct_channel_stack
 from ..ops.drift import (consensus_drift, generate_drift_crops,
                          prepare_ref_spectrum,
@@ -38,17 +39,6 @@ class RoundResult(NamedTuple):
     valid: torch.Tensor       # (C, N) bool
     drift: torch.Tensor       # (3,) zxy px
     drift_flag: torch.Tensor  # () int32: 0 consensus, 1 fallback
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the CUDA card when None; raises when CUDA is asked for
-    (explicitly or by default) and no CUDA device exists."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "imageanalysis3_tpu_torch runs on a CUDA device and none is "
-            "available; pass device='cpu' to run the plain PyTorch path")
-    return dev
 
 
 def _crop(im, b):

@@ -272,3 +272,212 @@ def make_e2e_scene(shape: Tuple[int, int, int] = E2E_SHAPE,
                     truth=truth, region_spots=region_spots,
                     bit_spots=bit_spots, bead_truth=bead_truth,
                     drifts=drifts, distractors=distractors)
+
+
+# ---------------------------------------------------------------------------
+# Planted optics (NumPy copies of the JAX package's synthetic.py:105-172)
+# and the bead-calibration scene
+# ---------------------------------------------------------------------------
+
+
+def illumination_profile(shape_xy: Tuple[int, int],
+                         falloff: float = 0.35,
+                         rng: Optional[np.random.Generator] = None
+                         ) -> np.ndarray:
+    """Smooth vignetting profile in (0, 1], peak 1.0 at center."""
+    x = np.linspace(-1, 1, shape_xy[0])[:, None]
+    y = np.linspace(-1, 1, shape_xy[1])[None, :]
+    prof = 1.0 - falloff * (x ** 2 + y ** 2) / 2.0
+    if rng is not None:
+        prof = prof * (1 + 0.01 * np.cos(3 * np.pi * x) * np.sin(2 * np.pi * y))
+    return np.clip(prof, 0.2, 1.0)
+
+
+def bleed_matrix(channels: int = 3, leak: float = 0.08,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Row-stochastic-ish mixing matrix M: observed = M @ true."""
+    m = np.eye(channels)
+    for i in range(channels):
+        for j in range(channels):
+            if abs(i - j) == 1:
+                m[i, j] = leak * (1 + (0.3 * rng.standard_normal() if rng else 0))
+    return m
+
+
+def _poly_shift_np(coords: np.ndarray, constants: np.ndarray,
+                   ref_center: np.ndarray, max_order: int = 2) -> np.ndarray:
+    """Order-`max_order` polynomial shift field at (N, 3) coords, using the
+    same monomial basis/order as ops.warp (reference
+    correction_tools/chromatic.py:415-438)."""
+    from .ops.warp import monomial_exponents
+
+    d = coords - ref_center[None]
+    cols = []
+    for e in monomial_exponents(3, max_order):
+        c = np.ones(len(coords))
+        for dim, p in enumerate(e):
+            if p:
+                c = c * d[:, dim] ** p
+        cols.append(c)
+    X = np.stack(cols, axis=-1)                       # (N, n_mono)
+    return X @ np.asarray(constants, np.float64).T    # (N, 3)
+
+
+CALIBRATION_SHAPE = (60, 2048, 2048)
+
+#: planted order-2 chromatic shifts (px) of the non-reference channels, per
+#: dimension (z, x, y), as coefficients of the monomials [1, z, x, y, z^2,
+#: zx, zy, x^2, xy, y^2] (ops.warp's order) of the coordinates centred on
+#: the stack and divided by its half-extent: up to ~2 px at the FOV edge,
+#: whatever the stack's size
+PLANTED_SHIFTS = {
+    0: ((0.2, 0.1, 0.2, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.1),
+        (0.5, 0.0, 0.9, -0.3, 0.0, 0.0, 0.0, 0.4, 0.2, -0.2),
+        (-0.3, 0.0, 0.2, 0.9, 0.0, 0.0, 0.0, -0.2, 0.1, 0.4)),
+    2: ((-0.1, -0.05, 0.1, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0),
+        (-0.4, 0.0, -0.5, 0.2, 0.0, 0.0, 0.0, -0.3, 0.0, 0.1),
+        (0.3, 0.0, -0.2, -0.6, 0.0, 0.0, 0.0, 0.0, 0.1, -0.3)),
+}
+
+
+class CalibrationScene(NamedTuple):
+    """Planted optics of a bead-calibration run and how to render its
+    stacks on a device.
+
+    One vignette (`illumination`, (X, Y), peak 1) for every channel, one
+    mixing matrix (`mixing`, (C, C): observed = M @ true), and per channel
+    a chromatic shift (`chromatic`, (C, 3, 10) constants over coordinates
+    centred on `ref_center`; zero for `ref_channel`): channel c images a
+    point p at p + shift_c(p).  Bleedthrough mixes the channels' shifted
+    images, so the unmixed image of channel c is its own shifted image.
+    The truth dicts are :func:`sample_spot_params`'s."""
+
+    shape: Tuple[int, int, int]
+    illumination: np.ndarray
+    mixing: np.ndarray
+    chromatic: np.ndarray
+    ref_center: np.ndarray
+    ref_channel: int
+    illum_spots: list           # per illumination stack
+    bleed_spots: list           # per calibration round: its labelled channel
+    beads: dict                 # the bead field, in the reference channel
+    round_spots: list           # per channel of the corrected round
+    background: float
+
+    def shifted(self, ci: int, centers: np.ndarray) -> np.ndarray:
+        """Where channel `ci` images the points `centers` (N, 3)."""
+        return centers + _poly_shift_np(np.asarray(centers, np.float64),
+                                        self.chromatic[ci], self.ref_center)
+
+    def _vignette(self, device) -> torch.Tensor:
+        return torch.as_tensor(self.illumination.astype(np.float32),
+                               device=device)
+
+    def _image(self, ci: int, truth: dict, device) -> torch.Tensor:
+        """Channel ci's spot image of `truth` (no background)."""
+        return render_spots(self.shape, self.shifted(ci, truth["centers"]),
+                            truth["heights"], background=0.0, device=device)
+
+    def illumination_stack(self, k: int, device="cuda") -> torch.Tensor:
+        """Flat-field stack k: sparse spots on a bright background under
+        the vignette, (Z, X, Y) uint16."""
+        t = self.illum_spots[k]
+        im = render_spots(self.shape, t["centers"], t["heights"],
+                          background=t["background"], device=device)
+        return noisy_uint16(im, seed=500 + k,
+                            illumination=self._vignette(device))
+
+    def bleed_round(self, i: int, device="cuda") -> torch.Tensor:
+        """Calibration round i, where only channel i is labelled: every
+        channel c records mixing[c, i] times channel i's image, under the
+        vignette -> (C, Z, X, Y) uint16."""
+        img = self._image(i, self.bleed_spots[i], device)
+        vig = self._vignette(device)
+        chans = [noisy_uint16(float(self.mixing[c, i]) * img + self.background,
+                              seed=600 + 10 * i + c, illumination=vig)
+                 for c in range(len(self.mixing))]
+        return torch.stack(chans)
+
+    def bead_pair(self, ci: int, device="cuda"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bead field imaged in channel `ci` and in the reference
+        channel -> (tar_im, ref_im), each (Z, X, Y) uint16."""
+        t = self.beads
+        ims = [noisy_uint16(render_spots(self.shape, self.shifted(c,
+                                                                  t["centers"]),
+                                         t["heights"],
+                                         background=t["background"],
+                                         device=device),
+                            seed=700 + 10 * ci + k)
+               for k, c in enumerate((ci, self.ref_channel))]
+        return ims[0], ims[1]
+
+    def round_stack(self, device="cuda") -> torch.Tensor:
+        """One round with every channel labelled (round_spots[c] in channel
+        c) under all three optics: chromatic shift, mixing, vignette ->
+        (C, Z, X, Y) uint16."""
+        c = len(self.mixing)
+        imgs = [self._image(j, self.round_spots[j], device) for j in range(c)]
+        vig = self._vignette(device)
+        chans = []
+        for ci in range(c):
+            obs = sum(float(self.mixing[ci, j]) * imgs[j] for j in range(c))
+            chans.append(noisy_uint16(obs + self.background, seed=800 + ci,
+                                      illumination=vig))
+            del obs
+        return torch.stack(chans)
+
+
+def make_calibration_scene(shape: Tuple[int, int, int] = CALIBRATION_SHAPE,
+                           n_channels: int = 3, ref_channel: int = 1,
+                           falloff: float = 0.35, leak: float = 0.08,
+                           n_illum_stacks: int = 4, n_illum_spots: int = 300,
+                           n_bleed_spots: int = 300, n_beads: int = 500,
+                           bead_separation: float = 20.0,
+                           n_round_spots: int = 500,
+                           seed: int = 7) -> CalibrationScene:
+    """A bead-calibration run with known optics, drawn from
+    ``default_rng(seed)``: `n_illum_stacks` flat-field stacks (spots 500-1500
+    on a 400 background), one single-label round per channel
+    (`n_bleed_spots` spots of 4000-8000, 14 px apart), a bead field of
+    `n_beads` beads (2000-5000, `bead_separation` apart) and one round of
+    `n_round_spots` spots per channel (1000-3000, 10 px apart over all
+    channels).  The planted optics are :func:`illumination_profile`
+    (`falloff`), :func:`bleed_matrix` (`leak`) and :data:`PLANTED_SHIFTS`
+    (the reference channel unshifted); nothing is rendered until a stack
+    is asked for."""
+    from .ops.warp import monomial_exponents
+
+    rng = np.random.default_rng(seed)
+    shape = tuple(int(s) for s in shape)
+    half = np.asarray(shape, np.float64) / 2.0
+    scale = np.array([1.0 / np.prod(half ** np.asarray(e))
+                      for e in monomial_exponents(3, 2)])
+    chromatic = np.zeros((n_channels, 3, len(scale)), np.float32)
+    for ci, rows in PLANTED_SHIFTS.items():
+        if ci < n_channels and ci != ref_channel:
+            chromatic[ci] = np.asarray(rows) * scale[None]
+    illum = [sample_spot_params(shape, n_illum_spots, rng,
+                                height_range=(500.0, 1500.0),
+                                background=400.0)
+             for _ in range(n_illum_stacks)]
+    bleed = [sample_spot_params(shape, n_bleed_spots, rng,
+                                min_separation=14.0,
+                                height_range=(4000.0, 8000.0))
+             for _ in range(n_channels)]
+    beads = sample_spot_params(shape, n_beads, rng,
+                               min_separation=bead_separation,
+                               height_range=(2000.0, 5000.0),
+                               background=120.0)
+    spots = sample_spot_params(shape, n_round_spots * n_channels, rng,
+                               min_separation=10.0,
+                               height_range=(1000.0, 3000.0))
+    round_spots = [{k: (v[ci::n_channels] if isinstance(v, np.ndarray)
+                        else v) for k, v in spots.items()}
+                   for ci in range(n_channels)]
+    return CalibrationScene(
+        shape=shape, illumination=illumination_profile(shape[1:], falloff),
+        mixing=bleed_matrix(n_channels, leak), chromatic=chromatic,
+        ref_center=half, ref_channel=int(ref_channel), illum_spots=illum,
+        bleed_spots=bleed, beads=beads, round_spots=round_spots,
+        background=100.0)

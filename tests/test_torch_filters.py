@@ -157,3 +157,84 @@ def test_deinterleave_matches_jax():
     got = tc.deinterleave_stack(torch.from_numpy(raw.astype(np.int32)),
                                 (1, 2), 3, 6).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("api", ["legacy", "fp32_precision"])
+def test_band_matmuls_run_full_f32_and_restore_the_setting(monkeypatch,
+                                                           api):
+    """With the caller's TF32 on (through either of PyTorch's two APIs),
+    both band matmuls (gaussian_filter's and the seeding z pass) run with
+    it off, and the caller's setting is back after each call."""
+    from imageanalysis3_tpu_torch.ops import seed_kernels as sk
+
+    flags = torch.backends.cuda.matmul
+    seen = []
+    real = torch.matmul
+
+    def spy(*args, **kw):
+        seen.append(flags.fp32_precision if api == "fp32_precision"
+                    else flags.allow_tf32)
+        return real(*args, **kw)
+
+    before = torch.get_float32_matmul_precision()
+    try:
+        if api == "legacy":
+            torch.set_float32_matmul_precision("high")
+        else:
+            flags.fp32_precision = "tf32"
+        monkeypatch.setattr(torch, "matmul", spy)
+        # 25 taps: one band matmul per axis
+        tf.gaussian_filter(torch.from_numpy(_stack()), 3.0)
+        sk.z_pass_pair(torch.from_numpy(_stack()),
+                       tf.gaussian_kernel1d(0.75), tf.gaussian_kernel1d(7.5))
+        after = (flags.fp32_precision if api == "fp32_precision"
+                 else torch.get_float32_matmul_precision())
+    finally:
+        monkeypatch.undo()
+        if api == "fp32_precision":
+            flags.fp32_precision = "none"
+        torch.set_float32_matmul_precision(before)
+    assert seen == (["ieee"] * 4 if api == "fp32_precision" else [False] * 4)
+    assert after == ("tf32" if api == "fp32_precision" else "high")
+
+
+def _band_matrix_loop(n, kernel, mode):
+    """The per-element loop the vectorised band matrix replaced: each tap's
+    source index by scalar repeated reflection, summed in (row, tap)
+    order in float64."""
+    def source(idx):
+        if mode == "constant":
+            return idx if 0 <= idx < n else None
+        if mode == "wrap":
+            return idx % n
+        for _ in range(64):
+            if 0 <= idx < n:
+                return idx
+            if mode == "nearest":
+                idx = min(max(idx, 0), n - 1)
+            elif mode == "reflect":
+                idx = -idx - 1 if idx < 0 else 2 * n - 1 - idx
+            else:
+                idx = -idx if idx < 0 else 2 * n - 2 - idx
+        return min(max(idx, 0), n - 1)
+
+    k = np.asarray(kernel, np.float64)
+    w = np.zeros((n, n), np.float64)
+    for i in range(n):
+        for t in range(len(k)):
+            s = source(i + t - len(k) // 2)
+            if s is not None:
+                w[i, s] += k[t]
+    return w.astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["reflect", "nearest", "mirror", "constant",
+                                  "wrap"])
+def test_band_matrix_equals_per_element_loop(mode):
+    """Bit for bit, short axes (radius > n, repeated reflection) included."""
+    for n in (1, 2, 5, 30, 97):
+        for sigma in (0.75, 3.0, 7.5):
+            k = tf.gaussian_kernel1d(sigma)
+            np.testing.assert_array_equal(
+                tf._band_matrix(n, tuple(k.tolist()), mode),
+                _band_matrix_loop(n, k, mode))
