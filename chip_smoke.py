@@ -12,8 +12,11 @@ Phases, each of which raises (exit code != 0) on a failed check:
    source, started together);
 2. kernels: each kernel against its plain PyTorch version on the rendered
    60x2048x2048 bench scene (the pyramid classifier; the exact classifier,
-   the dual x+y blur and the level stencil, each also through its
-   run-time-radius code on a small stack; the LM fit on round 0's 2048
+   whose default taps run the bg blur on the tensor cores and are held by
+   tolerance, with the one-warp proof of its mma fragment layout, two equal
+   launches, a constant stack and a full-range input; the dual x+y blur and
+   the level stencil; the three exact kernels also through their
+   bit-identical run-time-radius code on a small stack; the LM fit on round 0's 2048
    spots x 512 pixels x 8 iterations and on a Jacobi refit round's 512
    warm-started spots; the cube gather at the 2048 seeds with r = 5 and
    r = 4, on a thin stack and with origins far outside the stack, where
@@ -52,7 +55,8 @@ The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
 record goes to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds one
 slice-1 round under torch.profiler (device time by kernel, device busy
-share).
+share).  ``--only seed_classify`` builds that kernel alone and runs its
+checks and timing, nothing else.
 """
 
 from __future__ import annotations
@@ -171,9 +175,132 @@ def _check_seed_classify(torch, sk, inp) -> dict:
     if dcount > 2:
         raise AssertionError(f"seed_classify: counts differ by {dcount}")
     return {"max_abs_err": _max_abs(torch, qk[both], qp[both]),
-            "agree": agree, "n_qual": int(fp.sum()),
+            "agree": agree, "n_disagree": int((fk != fp).sum()),
+            "n_qual": int(fp.sum()),
             "counts": (int(ck.sum()), int(cp.sum())),
             "identical": torch.equal(qk, qp) and torch.equal(ck, cp)}
+
+
+def _seed_classify_checks(torch, sk, corrected, k_fg, k_bg, peaks,
+                          smi: str) -> dict:
+    """Everything held of seed_classify, on the corrected 60x2048x2048
+    stacks: (1) the one-warp proof of the mma fragment layout, a 16x8 by 8x8
+    product against the host's float64 one within 2e-6 of sum |a||b|; (2)
+    the default taps (bg passes on the tensor cores) against the plain
+    version within _check_seed_classify's tolerances, and the run-time-radius
+    code (fg sigma 1.5 / bg sigma 5 on a small stack), which must stay
+    bit-identical, and the default taps on a 7x75x203 stack (narrower than
+    the bg window, a width that is no multiple of 4); (2b) the rate the card sustains for the kernel's mma
+    instruction alone, for reading its time; (3) two launches on one input give equal outputs; (4) a
+    constant 12x256x256 stack counts nothing in any level; (5) the same
+    tolerances on a full-range input (stack and threshold scaled so that
+    the stack reaches 65 535);
+    then CUDA-event medians of kernel and plain version over the fresh
+    inputs and the bound."""
+    from imageanalysis3_tpu_torch.ops.filters import gaussian_kernel1d
+
+    dev = corrected[0].device
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(11)
+    a = (torch.randn(16, 8, generator=gen) * 1000.0).to(dev)
+    b = torch.randn(8, 8, generator=gen).to(dev)
+    d = sk.mma_selftest_cuda(a, b)
+    torch.cuda.synchronize()
+    want = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    mma_err = float(((d.double() - want).abs() / scale).max())
+    if not mma_err <= 2e-6:
+        raise AssertionError(f"seed_classify: mma fragment layout: error "
+                             f"{mma_err} of sum |a||b|")
+
+    n_mma, mma_ms = sk.mma_rate_cuda(dev)
+    mma_tflops = n_mma * 2 * 16 * 8 * 8 / mma_ms / 1e9
+
+    zpass = [sk.z_pass_pair(im, k_fg, k_bg) for im in corrected]
+    cls_in = [(fgz, bgz, k_fg, k_bg, TH_SEED, N_LVL, EDGE)
+              for fgz, bgz in zpass]
+    cls = _check_seed_classify(torch, sk, cls_in[0])
+    k_fg2, k_bg2 = gaussian_kernel1d(1.5), gaussian_kernel1d(5.0)
+    zs = sk.z_pass_pair(corrected[0][:12, :256, :256].contiguous(),
+                        k_fg2, k_bg2)
+    cls_gen = _check_seed_classify(
+        torch, sk, (*zs, k_fg2, k_bg2, TH_SEED, N_LVL, EDGE))
+    if not cls_gen["identical"]:
+        raise AssertionError("seed_classify: the run-time-radius path "
+                             "differs from its plain version")
+
+    # a stack narrower than the bg window and of a width that is no
+    # multiple of 4: every block reflects and copies unaligned
+    odd = corrected[0][20:27, 300:375, 500:703].contiguous()
+    cls_odd = _check_seed_classify(
+        torch, sk, (*sk.z_pass_pair(odd, k_fg, k_bg), k_fg, k_bg, TH_SEED,
+                    N_LVL, EDGE))
+
+    q1, c1 = sk.fused_seed_classify_cuda(*cls_in[1])
+    q2, c2 = sk.fused_seed_classify_cuda(*cls_in[1])
+    torch.cuda.synchronize()
+    if not (torch.equal(q1, q2) and torch.equal(c1, c2)):
+        raise AssertionError("seed_classify: two launches on one input "
+                             "differ")
+    del q1, q2
+
+    flat = torch.full((12, 256, 256), 800.0, device=dev)
+    qf, cf = sk.fused_seed_classify_cuda(*sk.z_pass_pair(flat, k_fg, k_bg),
+                                         k_fg, k_bg, TH_SEED, N_LVL, EDGE)
+    torch.cuda.synchronize()
+    if int(cf.sum()) != 0:
+        raise AssertionError(f"seed_classify: a constant stack counted "
+                             f"{cf.tolist()}")
+    flat_qualified = int(torch.isfinite(qf).sum())
+
+    # the threshold scales with the data, so the same voxels are in play
+    # and only the magnitudes, and with them the absolute errors, grow
+    gain = 65535.0 / float(corrected[0].max())
+    full = corrected[0] * gain
+    cls_full = _check_seed_classify(
+        torch, sk, (*sk.z_pass_pair(full, k_fg, k_bg), k_fg, k_bg,
+                    TH_SEED * gain, N_LVL, EDGE))
+    del full
+
+    ms = _events_ms(torch, sk.fused_seed_classify_cuda, cls_in,
+                    queue_ahead=True)
+    plain_ms = _events_ms(torch, sk.fused_seed_classify_plain, cls_in,
+                          queue_ahead=False)
+    nvox = float(corrected[0].numel())
+    kb, kf = len(k_bg), len(k_fg)
+    nbytes = 4 * nvox * 3 + 4 * N_LVL
+    # x and y passes of both stacks (k products, k-1 sums each), 26 maxima
+    # and 26 minima, the difference and two compares; 4 more per
+    # qualifying voxel for its level
+    bound = _bound(nbytes,
+                   nvox * (2 * (2 * kf - 1) + 2 * (2 * kb - 1) + 55)
+                   + 4 * cls["n_qual"], peaks)
+    byte_bound_ms = nbytes / peaks[0] * 1e3
+    print(f"seed_classify: PASS  mma fragment layout error {mma_err:.3g}; "
+          f"qualification agreement {cls['agree']:.9f} "
+          f"({cls['n_disagree']} voxels differ), max |dqdiff| "
+          f"{cls['max_abs_err']:.3g}, counts {cls['counts'][0]} vs "
+          f"{cls['counts'][1]}, bit-identical {cls['identical']}; generic "
+          f"radius path bit-identical {cls_gen['identical']} (max |dqdiff| "
+          f"{cls_gen['max_abs_err']:.3g}); 7x75x203 stack: max |dqdiff| "
+          f"{cls_odd['max_abs_err']:.3g}, {cls_odd['n_disagree']} voxels "
+          f"differ; two launches equal; constant "
+          f"stack counts 0 ({flat_qualified} voxels qualify at level "
+          f"{N_LVL}); full range: max |dqdiff| {cls_full['max_abs_err']:.3g}"
+          f", {cls_full['n_disagree']} voxels differ, counts "
+          f"{cls_full['counts'][0]} vs {cls_full['counts'][1]}")
+    print(f"kernels: seed_classify {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]}, bytes alone "
+          f"{byte_bound_ms:.4f} ms); its mma.sync.m16n8k8 TF32 instruction "
+          f"alone sustains {n_mma / mma_ms / 1e6:.2f} G products/s "
+          f"({mma_tflops:.1f} TFLOP/s, 16 warps per SM, 8 independent "
+          f"accumulators each)  [{smi}]")
+    return {"cls": cls, "cls_gen": cls_gen, "cls_full": cls_full,
+            "cls_odd": cls_odd,
+            "mma_layout_err": mma_err, "flat_qualified": flat_qualified,
+            "mma_rate_tflops": mma_tflops,
+            "ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "byte_bound_ms": byte_bound_ms, "zpass": zpass}
 
 
 def _check_dual_blur(torch, sk, inp) -> dict:
@@ -353,6 +480,30 @@ def _e2e_phase(torch, smi: str) -> dict:
             # codebook bit columns are 1-based ("1".."40")
             all_bits.append(np.full(int(valid[ci].sum()), r * n_data + ci + 1))
         del ims, res
+    # the round's split by stage, on three more renders of rounds 1-3 (all
+    # warm by now): the three channels' corrections, the drift against the
+    # reference, the two data channels' seeding and fits
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    split = {"correct": [], "drift": [], "fit": []}
+    for r in (1, 2, 3):
+        ims = scene.round_stack(r)
+        corr, t = timed(lambda: [pipe.correct_one(ims[ci], ci)
+                                 for ci in range(n_data + 1)])
+        split["correct"].append(t)
+        split["drift"].append(timed(
+            lambda: pipe.drift_of(corr[n_data], ref_im))[1])
+        split["fit"].append(timed(lambda: [
+            pipe.fit_channel(corr[ci], float(pipe.seed_thresholds[ci]))
+            for ci in range(n_data)])[1])
+        del ims, corr
+    stages = {k: statistics.median(v) for k, v in split.items()}
+
     spots = np.concatenate(all_spots).astype(np.float32)
     bits = np.concatenate(all_bits)
 
@@ -396,7 +547,9 @@ def _e2e_phase(torch, smi: str) -> dict:
     med_drift = float(np.median(drift_errs))
     sec = statistics.median(t_proc)
     print(f"e2e: {sec:.4f} s/round (median of {len(t_proc)} rounds, render "
-          f"{statistics.median(t_render):.4f} s/round excluded), decode "
+          f"{statistics.median(t_render):.4f} s/round excluded; stages "
+          f"{ {k: round(v, 4) for k, v in stages.items()} } s: {n_data + 1} "
+          f"corrections, 1 drift, {n_data} fits), decode "
           f"{t_decode:.3f} s (tuples {dec.stage_seconds['tuples']:.3f}, "
           f"homolog {dec.stage_seconds['homolog']:.3f}; first call "
           f"{t_decode_first:.3f}), {len(spots)} candidate spots, regions "
@@ -413,6 +566,7 @@ def _e2e_phase(torch, smi: str) -> dict:
     if not med_drift <= 0.1:
         raise AssertionError(f"e2e: median drift error {med_drift} px > 0.1")
     return {"seconds_per_round": sec, "round_seconds": t_proc,
+            "stage_seconds": stages,
             "render_seconds": t_render, "decode_seconds": t_decode,
             "decode_stage_seconds": dict(dec.stage_seconds),
             "decode_first_call_seconds": t_decode_first,
@@ -772,6 +926,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one round (device time by kernel)")
+    ap.add_argument("--only", choices=["seed_classify"],
+                    help="build this kernel alone and run its checks and "
+                         "timings on the bench scene, nothing else (no "
+                         "paths, no final ok line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -806,7 +964,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"peaks used for bounds: {peaks[2]}")
-    build_s = _build.build()
+    build_s = _build.build([args.only] if args.only else _build.KERNELS)
     print(f"kernel build: {build_s:.2f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -851,6 +1009,10 @@ def main(argv=None) -> int:
     # ---- 2. kernels against their plain versions ------------------------
     k_fg = gaussian_kernel1d(cfg.seed.gfilt_size)
     sig_bg = cfg.seed.background_gfilt_size
+    if args.only == "seed_classify":
+        _seed_classify_checks(torch, seed_kernels, corrected, k_fg,
+                              gaussian_kernel1d(sig_bg), peaks, smi)
+        return 0
     pyr_in = [(im, seed_kernels.pyramid_background(im, sig_bg), k_fg,
                TH_SEED, N_LVL, EDGE) for im in corrected]
     qk, ck = seed_kernels.fused_seed_classify_pyramid_cuda(*pyr_in[0])
@@ -916,25 +1078,19 @@ def main(argv=None) -> int:
     # level_stencil; the generic (run-time radius) code paths on a small
     # stack with fg sigma 1.5 / bg sigma 5
     k_bg = gaussian_kernel1d(sig_bg)
-    zpass = [seed_kernels.z_pass_pair(im, k_fg, k_bg) for im in corrected]
-    cls_in = [(fgz, bgz, k_fg, k_bg, TH_SEED, N_LVL, EDGE)
-              for fgz, bgz in zpass]
-    cls = _check_seed_classify(torch, seed_kernels, cls_in[0])
+    sc = _seed_classify_checks(torch, seed_kernels, corrected, k_fg, k_bg,
+                               peaks, smi)
+    cls, cls_gen, zpass = sc["cls"], sc["cls_gen"], sc.pop("zpass")
+    cls_ms, cls_plain_ms, cls_bound = sc["ms"], sc["plain_ms"], sc["bound"]
     k_fg2, k_bg2 = gaussian_kernel1d(1.5), gaussian_kernel1d(5.0)
     zs = seed_kernels.z_pass_pair(corrected[0][:12, :256, :256].contiguous(),
                                   k_fg2, k_bg2)
-    cls_gen = _check_seed_classify(
-        torch, seed_kernels, (*zs, k_fg2, k_bg2, TH_SEED, N_LVL, EDGE))
     blur_in = [(fgz, bgz, k_fg, k_bg) for fgz, bgz in zpass]
     blur = _check_dual_blur(torch, seed_kernels, blur_in[0])
     blur_gen = _check_dual_blur(torch, seed_kernels, (*zs, k_fg2, k_bg2))
     lvl_in = [(*seed_kernels.dual_blur_xy_plain(*b), TH_SEED, N_LVL, EDGE)
               for b in blur_in]
     lvl = _check_level_stencil(torch, seed_kernels, lvl_in[0])
-    cls_ms = _events_ms(torch, seed_kernels.fused_seed_classify_cuda, cls_in,
-                        queue_ahead=True)
-    cls_plain_ms = _events_ms(torch, seed_kernels.fused_seed_classify_plain,
-                              cls_in, queue_ahead=False)
     blur_ms = _events_ms(torch, seed_kernels.dual_blur_xy_cuda, blur_in,
                          queue_ahead=True)
     blur_plain_ms = _events_ms(torch, seed_kernels.dual_blur_xy_plain,
@@ -944,34 +1100,22 @@ def main(argv=None) -> int:
     lvl_plain_ms = _events_ms(torch, seed_kernels.level_stencil_plain,
                               lvl_in, queue_ahead=False)
     kb, kf = len(k_bg), len(k_fg)
-    # x and y passes of both stacks (k products, k-1 sums each), 26 maxima
-    # and 26 minima, the difference and two compares; 4 more per
-    # qualifying voxel for its level
-    cls_bound = _bound(4 * nvox * 3 + 4 * N_LVL,
-                       nvox * (2 * (2 * kf - 1) + 2 * (2 * kb - 1) + 55)
-                       + 4 * cls["n_qual"], peaks)
+    # the x and y passes of both stacks (k products, k-1 sums each)
     blur_bound = _bound(4 * nvox * 4,
                         nvox * (2 * (2 * kf - 1) + 2 * (2 * kb - 1)), peaks)
     # 26 maxima, 26 minima, the difference, two compares and the level's
     # 5 (divide, subtract, multiply, ceil, clip) on every voxel
     lvl_bound = _bound(nvox * (4 + 4 + 4 + 1) + 4 * N_LVL, nvox * 60, peaks)
-    print(f"seed_classify: PASS  qualification agreement "
-          f"{cls['agree']:.9f}, max |dqdiff| {cls['max_abs_err']:.3g}, "
-          f"counts {cls['counts'][0]} vs {cls['counts'][1]}, bit-identical "
-          f"{cls['identical']}; generic radius path bit-identical "
-          f"{cls_gen['identical']} (max |dqdiff| {cls_gen['max_abs_err']:.3g})")
     print(f"dual_blur: PASS  max |d| {blur['max_abs_err']:.3g}, bit-identical "
           f"{blur['identical']}; generic radius path bit-identical "
           f"{blur_gen['identical']}")
     print(f"level_stencil: PASS  counts {lvl['counts']}, level identical, "
           f"max |ddiff| {lvl['max_abs_err']:.3g}")
-    print(f"kernels: seed_classify {cls_ms:.4f} ms (plain {cls_plain_ms:.4f} "
-          f"ms, bound {cls_bound[0]:.4f} ms by {cls_bound[1]}); dual_blur "
-          f"{blur_ms:.4f} ms (plain {blur_plain_ms:.4f} ms, bound "
+    print(f"kernels: dual_blur {blur_ms:.4f} ms (plain {blur_plain_ms:.4f} ms, bound "
           f"{blur_bound[0]:.4f} ms by {blur_bound[1]}); level_stencil "
           f"{lvl_ms:.4f} ms (plain {lvl_plain_ms:.4f} ms, bound "
           f"{lvl_bound[0]:.4f} ms by {lvl_bound[1]})  [{smi}]")
-    del zpass, cls_in, blur_in, lvl_in, zs
+    del zpass, blur_in, lvl_in, zs
 
     # LM at the main path's round-0 shapes: blocks around the seeds
     fcfg = cfg.fit
@@ -1215,7 +1359,12 @@ def main(argv=None) -> int:
                             "qualify (intensity units)",
             "lm_fit": "max |centre kernel - plain| over valid spots (px)",
             "seed_classify": "max |qdiff kernel - plain| over voxels both "
-                             "qualify (intensity units)",
+                             "qualify (intensity units); the default taps' "
+                             "bg runs as split-TF32 products on the tensor "
+                             "cores and is held by tolerance (qualification "
+                             "on > 1 - 1e-5 of voxels, qdiff rtol 1e-4 / "
+                             "atol 0.05, counts within 2), not bit for bit; "
+                             "the run-time-radius path is bit-identical",
             "dual_blur": "max |blur kernel - plain| over both stacks "
                          "(intensity units)",
             "level_stencil": "max |diff kernel - plain| (intensity units)",
@@ -1223,6 +1372,11 @@ def main(argv=None) -> int:
                             "(intensity units)"},
         kernel_checks={"seed_classify": cls,
                        "seed_classify_generic_radius": cls_gen,
+                       "seed_classify_full_range": sc["cls_full"],
+                       "seed_classify_odd_shape": sc["cls_odd"],
+                       "seed_classify_mma_layout_err": sc["mma_layout_err"],
+                       "seed_classify_flat_qualified": sc["flat_qualified"],
+                       "seed_classify_byte_bound_ms": sc["byte_bound_ms"],
                        "dual_blur": blur, "dual_blur_generic_radius": blur_gen,
                        "level_stencil": lvl, "gather_cubes": gather},
         seconds_per_stack=sec, round_seconds=times, stage_seconds=stages,

@@ -14,46 +14,117 @@
 // and it lies inside the edge margin (d <= i <= n - d on every axis), and
 // level = clip(ceil((1 - diff/th) n), 0, n).
 //
-// Arithmetic: seed_common.cuh's blur_plane (taps in order, x pass before
-// y pass, __fmul_rn/__fadd_rn) as the plain version
-// (fused_seed_classify_plain) computes it, so the blurred values, and with
-// them the exact-equality plateau test min3 != bg, agree bit for bit.
+// Arithmetic.  The foreground (7 taps by default) is seed_common.cuh's
+// blur_staged_x / blur_staged_y: taps in order, x pass before y pass,
+// __fmul_rn/__fadd_rn, bit for bit the plain version's
+// (fused_seed_classify_plain), because max3 == fg is an exact comparison
+// of identically computed values.  The background's default 61 taps run
+// on the tensor cores, as the TPU kernel runs them on its matrix unit:
+// each pass is a banded product (x pass XP = A S with A[i][i+u] = t[u];
+// y pass P = XP A^T), every operand split into two TF32 values (hi = v
+// rounded to 10 mantissa bits, to nearest, ties away; lo = v - hi rounded
+// the same: cvt.rna.tf32.f32's results) and three mma.sync.m16n8k8
+// products lo*hi + hi*lo + hi*hi summed in f32 (lo*lo, <= 2^-22 relative,
+// is dropped, as the TPU kernel's dot3 drops it).  So the default path
+// agrees with the plain version within the JAX tests' tolerances
+// (qualification on > 1 - 1e-5 of voxels, qdiff within rtol 1e-4 / atol
+// 0.05, counts within 2), not bit for bit: at 60x2048x2048 a handful of
+// 251.7 M voxels qualify differently and qdiff differs by < 1e-3 (< 1e-2
+// on data that fill the uint16 range).  min3 != bg compares values this
+// kernel computed itself, and a flat region that now passes it has diff
+// ~ 0, which is level n_lvl and never counted.  Any other tap counts take
+// the run-time-radius kernel (blur_plane for both stacks), which stays
+// bit-identical with the plain version.
 //
-// What bounds it on an H100: operations.  At 60x2048x2048 it must read
-// the two z-passed 1.007 GB stacks and write the 1.007 GB qdiff (~3.02 GB,
-// ~0.90 ms at 3.35 TB/s), and do ~330 operations per voxel (61- and 7-tap
-// x and y passes, 52 stencil compares; ~83 GOP, ~1.24 ms at 67 TFLOP/s).
-// What the design does about it: the blurred stacks never reach device
-// memory, which is the TPU kernel's point.  One block owns a 32x64 (x, y)
-// core tile and walks z (the TPU grid's sequential z ring becomes a loop
-// inside the block).  Each step blurs the plane's tile plus a 1-voxel halo
-// in shared memory, first bg then fg, reduces each owned voxel's 3x3 xy
-// neighbourhood into a per-thread running ring (seed_common.cuh
-// VoxelRing), and emits the previous plane.  For the default taps (7 and
-// 61) the passes are register blocked (17 rows or 11 columns per thread
-// from one strip of shared loads), so the separately rounded multiplies and
-// adds, not shared-memory loads, are the work.  Known cost: the separable
-// x pass covers the y halo, 34 x 126 outputs for a 32 x 64 tile (2.1x the
-// core), and the raw window re-read, (34 + 60) x (66 + 60) / (32 x 64) =
-// 5.8x for the background's r = 30 (1.4x for the foreground), served
-// mostly from L2.  The histogram is a shared-memory one added to `counts`
-// with atomics at the end.
+// What bounds it on an H100: bytes.  At 60x2048x2048 it reads the two
+// z-passed 1.007 GB stacks and writes the 1.007 GB qdiff (~3.02 GB, ~0.90
+// ms at 3.35 TB/s); the blur's ~330 useful operations per voxel would take
+// ~1.2 ms on the CUDA cores at their peak, where a tap-ordered sum cannot
+// use FMA and needs ~415 instructions per voxel (~3.6 ms at the full
+// dispatch rate).  What the design does about it: the blurred stacks never
+// reach device memory, which is the TPU kernel's point, and the 61-tap
+// passes leave the CUDA cores.  One block of 16 warps per SM owns a 30x126
+// (x, y) core tile and walks z (the TPU grid's sequential z ring becomes a
+// loop inside the block); with its 1-voxel stencil halo the blurred window
+// is 32x128, two 16-row and sixteen 8-column mma tiles.  While plane z is
+// computed, plane z + 1's raw windows (bg 96x192, fg 38x134) land in second
+// buffers by cp.async: 16 bytes a copy for a bg window inside the plane
+// (its columns start up to 3 floats into their rows, so that every piece is
+// aligned), else 4 bytes from source offsets reflected once per block.  The
+// bg's raw row stride is 200 floats and the x-passed rows' 196, so the
+// B-operand and A-operand fragment reads hit 32 distinct banks.  The band
+// is Toeplitz, so one float4 per band chunk and lane (ops/seed_kernels.py
+// band_fragments) holds every fragment of both passes.  The x pass (ten
+// 8-deep chunks per 16-row tile) gives a warp one row tile and three
+// column tiles per chunk's band fragments; the y pass (nine chunks per
+// 8-column tile) gives it two neighbouring column tiles, so each split
+// data fragment serves both.  The fg's x pass runs on the CUDA cores in the
+// bg y pass's barrier phase, its y pass after it, both blurred planes and
+// the fg's x-passed rows lying in the raw bg window the x pass has
+// consumed.  Then each thread reduces the 3x3 xy neighbourhoods of the 8
+// rows of one column it owns (each plane row's three columns reduced once)
+// into a running ring (seed_common.cuh VoxelRing) and emits the previous
+// plane: four barriers a plane.  Known cost: in this loop the products run
+// at about 40 % of the rate the instruction sustains alone
+// (seed_classify_mma_rate), and they, the splits and the CUDA-core phases
+// add up rather than overlap: with four warps per scheduler the kernel is
+// bound by the instructions it executes, so what shortens it is fewer
+// instructions; the separable x pass covers the y halo, 32x192 outputs for
+// a 30x126 tile (1.6x the core); the band's zero padding (80 or 72 columns
+// for 61 taps); the raw window re-read, 96 x 192 / (30 x 126) = 4.9x for the bg
+// (1.3x for the fg), served mostly from L2; the shared memory (226 KB)
+// and the registers (128) leave one block per SM.  The histogram is a
+// shared-memory one added to `counts` with atomics at the end.
 
 #include "seed_common.cuh"
 
 namespace {
 
-constexpr int TX = 32;
-constexpr int TY = 64;
-constexpr int NT = 256;
-constexpr int M = TX * TY / NT;
-constexpr int RX = TX + 2, RY = TY + 2;
+// blurred window (tile + 1-voxel halo): two 16-row, sixteen 8-column tiles
+constexpr int RX = 32, RY = 128;
+constexpr int TX = RX - 2, TY = RY - 2;
+constexpr int NT = 512;
+constexpr int NW = NT / 32;
+constexpr int M = (TX * TY + NT - 1) / NT;   // voxels a thread owns
+constexpr int PS = RY + 6;   // row stride of the blurred plane: even, for
+                             // float2 stores, and 6 (mod 32), so that the
+                             // fg y pass's row-strided stores spread
+
+// the tap counts whose bg passes run on the tensor cores
+constexpr int KF_MMA = 7, KB_MMA = 61;
+constexpr int XCH = (16 + KB_MMA - 1 + 7) / 8;   // band chunks of a 16-row tile
+constexpr int YCH = (8 + KB_MMA - 1 + 7) / 8;    // of an 8-column tile
+constexpr int MT = RX / 16;                      // row tiles
+constexpr int SR = 16 * (MT - 1) + 8 * XCH;      // raw rows the x pass reads
+constexpr int SCM = (RY + KB_MMA - 1 + 7) / 8 * 8;   // raw / x-passed columns
+constexpr int SS = SCM + 8;   // raw row stride, = 8 (mod 32)
+constexpr int SC4 = (SCM + 3 + 3) / 4;   // float4 per raw row, any shift
+constexpr int XS = SCM + 4;   // x-passed row stride, = 4 (mod 8)
+constexpr int NXT = SCM / 8;  // column tiles of the x pass
+constexpr int NYT = RY / 8;   // column tiles of the y pass
+constexpr int NXW = NXT * MT / NW;   // x pass: column tiles per warp
+constexpr int NYW = NYT * MT / NW;   // y pass: neighbouring tiles per warp
+constexpr int BAND = XCH * 32 * 4;   // floats of the band table
+static_assert(4 * SC4 <= SS && SS % 32 == 8 && XS % 8 == 4 && NXT * MT % NW == 0 &&
+                  NYT * MT % NW == 0 && 8 * (NYT - 1 + YCH) <= SCM &&
+                  PS % 2 == 0 && YCH <= XCH,
+              "mma tiling");
+// the fg's raw window and blocking (seed_common.cuh blur_staged_x, blur_staged_y)
+constexpr int FR = RX + KF_MMA - 1, FC = RY + KF_MMA - 1;
+constexpr int FMBX = 4, FMBY = 8;
+constexpr int SFW = (FR * FC + 3) / 4 * 4;   // floats of one raw fg window
+// stencil strips: a thread owns SM rows of one column
+constexpr int STRIPS = NT / TY;
+constexpr int SM_ROWS = (TX + STRIPS - 1) / STRIPS;
+static_assert(SM_ROWS <= M && STRIPS >= 1, "strips must cover the tile");
 
 struct Args {
   const float* __restrict__ fgz;
   const float* __restrict__ bgz;
   float* __restrict__ qdiff;
   int* __restrict__ counts;
+  const float* __restrict__ band;   // BAND floats (tensor-core path)
+  bool aligned16;                   // bgz and its row pitch, to 16 bytes
   float taps_fg[ia3::MAX_TAPS];
   float taps_bg[ia3::MAX_TAPS];
   int k_fg, k_bg;
@@ -62,12 +133,22 @@ struct Args {
   int n_lvl, edge;
 };
 
-constexpr int PS = RY + 1;    // odd row stride of the blurred plane
-constexpr int MBX = 17;       // x-pass rows per work item (RX = 2 x 17)
-constexpr int MBY = 11;       // y-pass columns per work item (RY = 6 x 11)
+// classify voxel (zc, gx, gy) from its blurred values and 3^3 extrema,
+// write its qdiff and count its level
+__device__ __forceinline__ void emit_voxel(const Args& a, int* hist, int zc,
+                                           int gx, int gy, float f, float b,
+                                           float mx3, float mn3) {
+  const bool ok = ia3::in_margin(zc, gx, gy, a.nz, a.nx, a.ny, a.edge);
+  const ia3::Classified c = ia3::classify(f, b, mx3, mn3, ok, a.th, a.n_lvl);
+  a.qdiff[((size_t)zc * a.nx + gx) * a.ny + gy] =
+      c.qualify ? c.diff : -INFINITY;
+  if (c.level < a.n_lvl) atomicAdd(&hist[c.level], 1);
+}
 
-// the raw window of the larger kernel, which the blurred plane (RX x PS)
-// reuses once the x pass has read it, then the x-passed rows
+// ---- run-time tap counts: both blurs in tap order -----------------------
+
+// shared floats: the raw window of the larger kernel, which the blurred
+// plane (RX x PS) reuses once the x pass has read it, then the x-passed rows
 __host__ __device__ inline int window_floats(int k) {
   const int raw = ia3::raw_window_floats(RX, RY, k);
   return raw > RX * PS ? raw : RX * PS;
@@ -76,25 +157,9 @@ __host__ __device__ inline int smem_floats(int k) {
   return window_floats(k) + ia3::xpass_floats(RX, RY, k);
 }
 
-// blur one plane's RX x RY window (tile + 1-voxel halo) into P: the
-// register-blocked form for a compiled tap count K, else the run-time one
-template <int K, class Store>
-__device__ __forceinline__ void blur(const float* plane, const Args& a,
-                                     int x0, int y0, const float* taps,
-                                     int k, float* S, float* XP,
-                                     Store store) {
-  if constexpr (K > 0)
-    ia3::blur_plane_blocked<K, RX, RY, MBX, MBY, NT>(
-        plane, a.nx, a.ny, x0 - 1, y0 - 1, taps, S, XP, store);
-  else
-    ia3::blur_plane<NT>(plane, a.nx, a.ny, x0 - 1, y0 - 1, RX, RY, taps, k,
-                        S, XP, store);
-}
-
-template <int KF, int KB>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, 1)
     seed_classify_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ int hist[ia3::MAX_LVL];
   for (int i = threadIdx.x; i < a.n_lvl; i += NT) hist[i] = 0;
   const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
@@ -107,35 +172,29 @@ __global__ void __launch_bounds__(NT, 2)
   ia3::VoxelRing ring[M];
   float mn3[M], bgc[M];
 
-  // classify plane zc of owned voxel m and write its qdiff
   auto emit = [&](int zc, int m, float f, float b, float mx3, float mn3_) {
     const int e = threadIdx.x + m * NT;
     const int gx = x0 + e / TY, gy = y0 + e % TY;
-    if (gx >= nx || gy >= ny) return;
-    const bool ok = ia3::in_margin(zc, gx, gy, a.nz, nx, ny, a.edge);
-    const ia3::Classified c =
-        ia3::classify(f, b, mx3, mn3_, ok, a.th, a.n_lvl);
-    a.qdiff[(size_t)zc * plane + (size_t)gx * ny + gy] =
-        c.qualify ? c.diff : -INFINITY;
-    if (c.level < a.n_lvl) atomicAdd(&hist[c.level], 1);
+    if (e < TX * TY && gx < nx && gy < ny)
+      emit_voxel(a, hist, zc, gx, gy, f, b, mx3, mn3_);
   };
 
   for (int z = 0; z < a.nz; ++z) {
-    blur<KB>(a.bgz + (size_t)z * plane, a, x0, y0, a.taps_bg, a.k_bg, S, XP,
-             to_p);
+    ia3::blur_plane<NT>(a.bgz + (size_t)z * plane, nx, ny, x0 - 1, y0 - 1, RX,
+                        RY, a.taps_bg, a.k_bg, S, XP, to_p);
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      const int e = threadIdx.x + m * NT;
+      const int e = min((int)threadIdx.x + m * NT, TX * TY - 1);
       const int i = e / TY, j = e % TY;
       mn3[m] = ia3::xy_reduce3<false>(P, PS, i + 1, j + 1, x0 + i, y0 + j,
                                       nx, ny);
       bgc[m] = P[(i + 1) * PS + j + 1];
     }
-    blur<KF>(a.fgz + (size_t)z * plane, a, x0, y0, a.taps_fg, a.k_fg, S, XP,
-             to_p);
+    ia3::blur_plane<NT>(a.fgz + (size_t)z * plane, nx, ny, x0 - 1, y0 - 1, RX,
+                        RY, a.taps_fg, a.k_fg, S, XP, to_p);
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      const int e = threadIdx.x + m * NT;
+      const int e = min((int)threadIdx.x + m * NT, TX * TY - 1);
       const int i = e / TY, j = e % TY;
       const float mx3 = ia3::xy_reduce3<true>(P, PS, i + 1, j + 1, x0 + i,
                                               y0 + j, nx, ny);
@@ -157,34 +216,405 @@ __global__ void __launch_bounds__(NT, 2)
     if (hist[i]) atomicAdd(&a.counts[i], hist[i]);
 }
 
-template <int KF, int KB>
-int launch(const Args& a, size_t smem, dim3 grid, cudaStream_t s) {
+// ---- the default taps: bg on the tensor cores ---------------------------
+// mma.sync.m16n8k8 fragments (g = lane >> 2, t = lane & 3): A (16x8, row)
+// a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]; B (8x8,
+// col) b0 = B[t][g], b1 = B[t+4][g]; C/D (16x8) c0 = C[g][2t],
+// c1 = C[g][2t+1], c2 = C[g+8][2t], c3 = C[g+8][2t+1].
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+// v rounded to TF32's 10 mantissa bits, to nearest, ties away from zero:
+// cvt.rna.tf32.f32's result for every finite v, in two integer
+// instructions (the conversion instruction runs at a lower rate and was
+// measured slower here)
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo up to 2^-22 relative; the subtraction is exact
+__device__ __forceinline__ Split split(float v) {
+  Split s;
+  s.hi = to_tf32(v);
+  s.lo = to_tf32(__fsub_rn(v, __uint_as_float(s.hi)));
+  return s;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a b with both operands split: lo*hi, hi*lo, then hi*hi
+__device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4],
+                                     const Split (&b)[2]) {
+  mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+// The band table, band[c][lane] = (d.hi, e.hi, d.lo, e.lo) with
+// d = t[8c + t - g], e = t[8c + t - g + 4] (0 outside the taps).  The band
+// is Toeplitz, so these two values are every fragment: the x pass's A
+// operand A[i][k] = t[8c + k - i] has (a0, a1, a2, a3) = (d_c, d_{c-1}, e_c,
+// e_{c-1}) and the y pass's B operand B[k][n] = t[8c + k - n] has
+// (b0, b1) = (d_c, e_c); d and e of chunk -1 are 0.
+struct BandPair {
+  Split d, e;
+};
+__device__ __forceinline__ BandPair band_pair(const float4* band, int c,
+                                              int lane) {
+  const float4 f = band[c * 32 + lane];
+  return {{__float_as_uint(f.x), __float_as_uint(f.z)},
+          {__float_as_uint(f.y), __float_as_uint(f.w)}};
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Start the copy of one plane's ROWS x COLS raw window into S (row stride
+// STRIDE): element (i, j) comes from plane[row_off[i] + col_off[j]], the
+// offsets reflected at the plane's edges once per block (window_offsets).
+// Warps take rows, lanes take columns.  No barrier: the caller commits,
+// waits and synchronises.
+template <int ROWS, int COLS, int STRIDE>
+__device__ __forceinline__ void prefetch_window(
+    const float* __restrict__ plane, const int* row_off, const int* col_off,
+    float* S) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < ROWS; i += NW) {
+    const float* row = plane + row_off[i];
+    float* dst = S + i * STRIDE;
+#pragma unroll
+    for (int j = lane; j < COLS; j += 32) cp_async4(dst + j, row + col_off[j]);
+  }
+}
+
+// prefetch_window for a window that lies inside the plane with a 16-byte
+// aligned first element (first: the plane's element under S[0]) and row
+// pitch: ROWS rows of COLS4 float4
+template <int ROWS, int COLS4, int STRIDE>
+__device__ __forceinline__ void prefetch_window16(
+    const float* __restrict__ first, int ny, float* S) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < ROWS; i += NW) {
+    const float* row = first + (size_t)i * ny;
+    float* dst = S + i * STRIDE;
+#pragma unroll
+    for (int k = lane; k < COLS4; k += 32) cp_async16(dst + 4 * k, row + 4 * k);
+  }
+}
+
+// row_off[i] = reflect(x_lo + i) * ny, col_off[j] = reflect(y_lo + j)
+__device__ __forceinline__ void window_offsets(int rows, int cols, int x_lo,
+                                               int y_lo, int nx, int ny,
+                                               int* row_off, int* col_off) {
+  for (int i = threadIdx.x; i < rows; i += NT)
+    row_off[i] = ia3::reflect_index(x_lo + i, nx) * ny;
+  for (int j = threadIdx.x; j < cols; j += NT)
+    col_off[j] = ia3::reflect_index(y_lo + j, ny);
+}
+
+// The 61-tap bg blur of the RX x RY window whose SR x SCM raw window lies in
+// S, into P (row stride PS; may overlap S), as two banded split-TF32
+// products through the x-passed rows XP.  Starts with S visible to the
+// block, ends synchronised.
+template <class BesideY>
+__device__ __forceinline__ void blur_bg_mma(const float* S, float* XP,
+                                            float* P, const float4* band,
+                                            BesideY beside_y) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = warp % MT;
+
+  // x pass: XP[i][j] = sum_u t[u] S[i + u][j].  A warp takes row tile mi
+  // and NXW column tiles; each band chunk's fragments serve all of them.
+  {
+    const int n0 = warp / MT * NXW;
+    float acc[NXW][4] = {};
+    const float* col = S + (16 * mi + t) * SS + n0 * 8 + g;
+    BandPair prev = {};
+#pragma unroll
+    for (int c = 0; c < XCH; ++c) {
+      const BandPair cur = band_pair(band, c, lane);
+      const Split a[4] = {cur.d, prev.d, cur.e, prev.e};
+#pragma unroll
+      for (int j = 0; j < NXW; ++j) {
+        const Split b[2] = {split(col[8 * c * SS + 8 * j]),
+                            split(col[(8 * c + 4) * SS + 8 * j])};
+        mma3(acc[j], a, b);
+      }
+      prev = cur;
+    }
+#pragma unroll
+    for (int j = 0; j < NXW; ++j) {
+      float* out = XP + (16 * mi + g) * XS + (n0 + j) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(out) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(out + 8 * XS) =
+          make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+  __syncthreads();
+
+  // y pass: P[i][j] = sum_u t[u] XP[i][j + u].  A warp takes row tile mi
+  // and NYW neighbouring column tiles, so the data's column chunk q is
+  // split once and serves band chunk q - jj of each tile jj.
+  {
+    const int nb = warp / MT * NYW;
+    float acc[NYW][4] = {};
+    const float* row = XP + (16 * mi + g) * XS + nb * 8 + t;
+    BandPair bp[NYW] = {};   // bp[jj]: the band chunk q - jj
+#pragma unroll
+    for (int q = 0; q < NYW - 1 + YCH; ++q) {
+      const Split a[4] = {split(row[8 * q]), split(row[8 * XS + 8 * q]),
+                          split(row[8 * q + 4]),
+                          split(row[8 * XS + 8 * q + 4])};
+#pragma unroll
+      for (int jj = NYW - 1; jj > 0; --jj) bp[jj] = bp[jj - 1];
+      if (q < YCH) bp[0] = band_pair(band, q, lane);
+#pragma unroll
+      for (int jj = 0; jj < NYW; ++jj) {
+        const int c = q - jj;
+        if (c < 0 || c >= YCH) continue;
+        const Split b[2] = {bp[jj].d, bp[jj].e};
+        mma3(acc[jj], a, b);
+      }
+    }
+    beside_y();
+#pragma unroll
+    for (int jj = 0; jj < NYW; ++jj) {
+      float* out = P + (16 * mi + g) * PS + (nb + jj) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(out) = make_float2(acc[jj][0], acc[jj][1]);
+      *reinterpret_cast<float2*>(out + 8 * PS) =
+          make_float2(acc[jj][2], acc[jj][3]);
+    }
+  }
+  __syncthreads();
+}
+
+// Max (MAX) or min over the in-range 3x3 xy neighbourhoods of the SM_ROWS
+// voxels a thread owns, rows i0 .. i0 + SM_ROWS - 1 of tile column j (plane
+// cells (i + 1, j + 1)), and their centre values: each plane row's three
+// columns are reduced once and shared by the three voxels that touch it.
+// Out-of-range neighbours are skipped, as xy_reduce3 skips them.
+template <bool MAX>
+__device__ __forceinline__ void strip_reduce3(const float* P, int i0, int j,
+                                              int gx0, int gy, int nx, int ny,
+                                              float (&out)[SM_ROWS],
+                                              float (&centre)[SM_ROWS]) {
+  const bool left = gy - 1 >= 0, right = gy + 1 < ny;
+  float h[SM_ROWS + 2];
+#pragma unroll
+  for (int r = 0; r < SM_ROWS + 2; ++r) {
+    const float* row = P + min(i0 + r, RX - 1) * PS + j;
+    float v = row[1];
+    if (r >= 1 && r <= SM_ROWS) centre[r - 1] = v;
+    if (left) v = MAX ? fmaxf(v, row[0]) : fminf(v, row[0]);
+    if (right) v = MAX ? fmaxf(v, row[2]) : fminf(v, row[2]);
+    h[r] = v;
+  }
+#pragma unroll
+  for (int m = 0; m < SM_ROWS; ++m) {
+    const int gx = gx0 + m;
+    float v = h[m + 1];
+    if (gx - 1 >= 0) v = MAX ? fmaxf(v, h[m]) : fminf(v, h[m]);
+    if (gx + 1 < nx) v = MAX ? fmaxf(v, h[m + 2]) : fminf(v, h[m + 2]);
+    out[m] = v;
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    seed_classify_mma_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int hist[ia3::MAX_LVL];
+  for (int i = threadIdx.x; i < a.n_lvl; i += NT) hist[i] = 0;
+  const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
+  const size_t plane = (size_t)a.nx * a.ny;
+  const int nx = a.nx, ny = a.ny;
+  // two raw bg and two raw fg windows (plane z computes in one while plane
+  // z + 1 lands in the other), the x-passed rows, the band table, the
+  // windows' source offsets
+  float* SB = smem;
+  float* SF = SB + 2 * SR * SS;
+  float* XP = SF + 2 * SFW;
+  float* BT = XP + RX * XS;
+  int* off_b = reinterpret_cast<int*>(BT + BAND);   // SR rows, SCM columns
+  int* off_f = off_b + SR + SCM;                    // FR rows, FC columns
+  for (int i = threadIdx.x; i < BAND; i += NT) BT[i] = a.band[i];
+  const float4* band = reinterpret_cast<const float4*>(BT);
+  constexpr int RB = KB_MMA / 2, RF = KF_MMA / 2;
+  // the bg window's columns start `sh` floats into their rows, so that a
+  // window inside the plane is copied in aligned 16-byte pieces
+  const int xb = x0 - 1 - RB, yb = y0 - 1 - RB, sh = yb & 3;
+  const bool wide = a.aligned16 && xb >= 0 && xb + SR <= nx && yb - sh >= 0 &&
+                    yb - sh + 4 * SC4 <= ny;
+  window_offsets(SR, SCM, xb, yb, nx, ny, off_b, off_b + SR);
+  window_offsets(FR, FC, x0 - 1 - RF, y0 - 1 - RF, nx, ny, off_f,
+                 off_f + FR);
+  __syncthreads();
+  auto prefetch = [&](int z) {
+    float* dst = SB + (z & 1) * SR * SS;
+    if (wide)
+      prefetch_window16<SR, SC4, SS>(
+          a.bgz + (size_t)z * plane + (size_t)xb * ny + (yb - sh), ny, dst);
+    else
+      prefetch_window<SR, SCM, SS>(a.bgz + (size_t)z * plane, off_b,
+                                   off_b + SR, dst + sh);
+    prefetch_window<FR, FC, FC>(a.fgz + (size_t)z * plane, off_f, off_f + FR,
+                                SF + (z & 1) * SFW);
+    cp_async_commit();
+  };
+
+  // the strip of the tile this thread owns
+  const int j = threadIdx.x % TY, i0 = threadIdx.x / TY * SM_ROWS;
+  const bool owner = threadIdx.x < STRIPS * TY && y0 + j < ny;
+  ia3::VoxelRing ring[SM_ROWS];
+  auto emit = [&](int zc, int m, float f, float b, float mx3, float mn3_) {
+    if (owner && i0 + m < TX && x0 + i0 + m < nx)
+      emit_voxel(a, hist, zc, x0 + i0 + m, y0 + j, f, b, mx3, mn3_);
+  };
+
+  prefetch(0);
+  for (int z = 0; z < a.nz; ++z) {
+    // once the x pass has read the raw bg window its buffer takes the
+    // blurred bg plane, the blurred fg plane and the fg's x-passed rows
+    float* S = SB + (z & 1) * SR * SS;
+    float* PB = S;
+    float* PF = PB + RX * PS;
+    float* XF = PF + RX * PS;
+    const float* SFz = SF + (z & 1) * SFW;
+    // plane z's windows have landed, and the other buffers, the bg one of
+    // which held plane z - 1's blurred planes, are free for plane z + 1's
+    cp_async_wait_all();
+    __syncthreads();
+    if (z + 1 < a.nz) prefetch(z + 1);
+    // the fg's x pass, on the CUDA cores, runs beside the bg's y pass
+    blur_bg_mma(S + sh, XP, PB, band, [&] {
+      ia3::blur_staged_x<KF_MMA, RX, RY, FMBX, NT>(a.taps_fg, SFz, XF);
+    });
+    ia3::blur_staged_y<KF_MMA, RX, RY, FMBY, NT>(
+        a.taps_fg, XF, [&](int i, int jj, float v) { PF[i * PS + jj] = v; });
+    __syncthreads();
+    if (owner) {
+      float mn3[SM_ROWS], bgc[SM_ROWS], mx3[SM_ROWS], fgc[SM_ROWS];
+      strip_reduce3<false>(PB, i0, j, x0 + i0, y0 + j, nx, ny, mn3, bgc);
+      strip_reduce3<true>(PF, i0, j, x0 + i0, y0 + j, nx, ny, mx3, fgc);
+#pragma unroll
+      for (int m = 0; m < SM_ROWS; ++m) {
+        if (z == 0) {
+          ring[m].start(mx3[m], mn3[m], fgc[m], bgc[m]);
+        } else {
+          emit(z - 1, m, ring[m].fg, ring[m].bg, fmaxf(ring[m].pm, mx3[m]),
+               fminf(ring[m].pn, mn3[m]));
+          ring[m].advance(mx3[m], mn3[m], fgc[m], bgc[m]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < SM_ROWS; ++m)
+    emit(a.nz - 1, m, ring[m].fg, ring[m].bg, ring[m].pm, ring[m].pn);
+  __syncthreads();
+  for (int i = threadIdx.x; i < a.n_lvl; i += NT)
+    if (hist[i]) atomicAdd(&a.counts[i], hist[i]);
+}
+
+constexpr int MMA_SMEM_FLOATS =
+    2 * SR * SS + 2 * SFW + RX * XS + BAND + SR + SCM + FR + FC;
+static_assert(SR * SS >= 2 * RX * PS + RX * (FC | 1) &&
+                  MMA_SMEM_FLOATS * 4 <= 232448 - 1024,
+              "tensor-core path's shared layout");
+
+template <class Kernel>
+int launch(Kernel kernel, const Args& a, size_t smem, dim3 grid,
+           cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      seed_classify_kernel<KF, KB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  seed_classify_kernel<KF, KB><<<grid, NT, smem, s>>>(a);
+  kernel<<<grid, NT, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// one warp: d (16x8) = a (16x8, row-major) b (8x8, row-major [k][n]) by
+// mma3, the fragment indices as blur_bg_mma uses them
+__global__ void mma_selftest_kernel(const float* a, const float* b,
+                                    float* d) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const Split fa[4] = {split(a[g * 8 + t]), split(a[(g + 8) * 8 + t]),
+                       split(a[g * 8 + t + 4]), split(a[(g + 8) * 8 + t + 4])};
+  const Split fb[2] = {split(b[t * 8 + g]), split(b[(t + 4) * 8 + g])};
+  float acc[4] = {};
+  mma3(acc, fa, fb);
+  d[g * 8 + 2 * t] = acc[0];
+  d[g * 8 + 2 * t + 1] = acc[1];
+  d[(g + 8) * 8 + 2 * t] = acc[2];
+  d[(g + 8) * 8 + 2 * t + 1] = acc[3];
+}
+
+// what mma_tf32 sustains: every warp runs `iters` rounds of 8 independent
+// accumulators; out[global warp] keeps the products alive
+__global__ void __launch_bounds__(NT, 1)
+    mma_rate_kernel(int iters, float* out) {
+  const uint32_t a = to_tf32(1.0f + threadIdx.x), b = to_tf32(0.5f);
+  float acc[8][4] = {};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) mma_tf32(acc[k], a, a, a, a, b, b);
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sum += acc[k][0] + acc[k][3];
+  if (threadIdx.x % 32 == 0)
+    out[(blockIdx.x * NT + threadIdx.x) / 32] = sum;
 }
 
 }  // namespace
 
+// band: the device table of ops/seed_kernels.py band_fragments(taps_bg)
+// for the default taps (7, 61), which take the tensor-core path; null for
+// any other tap counts, which take the run-time-radius path
 extern "C" int seed_classify_launch(const void* fgz, const void* bgz,
                                     void* qdiff, void* counts,
                                     const void* taps_fg, int k_fg,
-                                    const void* taps_bg, int k_bg, int nz,
-                                    int nx, int ny, float th, int n_lvl,
-                                    int edge, void* stream) {
+                                    const void* taps_bg, int k_bg,
+                                    const void* band, int nz, int nx, int ny,
+                                    float th, int n_lvl, int edge,
+                                    void* stream) {
+  const bool mma = k_fg == KF_MMA && k_bg == KB_MMA;
   if (nz < 1 || nx < 1 || ny < 1 || k_fg < 1 || k_bg < 1 ||
       k_fg > ia3::MAX_TAPS || k_bg > ia3::MAX_TAPS || k_fg % 2 == 0 ||
       k_bg % 2 == 0 || n_lvl < 1 || n_lvl > ia3::MAX_LVL ||
-      (nx + TX - 1) / TX > 65535)
+      (nx + TX - 1) / TX > 65535 || (size_t)nx * ny > 0x7fffffffu ||
+      mma != (band != nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.fgz = static_cast<const float*>(fgz);
   a.bgz = static_cast<const float*>(bgz);
   a.qdiff = static_cast<float*>(qdiff);
   a.counts = static_cast<int*>(counts);
+  a.band = static_cast<const float*>(band);
+  a.aligned16 = reinterpret_cast<uintptr_t>(bgz) % 16 == 0 && ny % 4 == 0;
   const float* tf = static_cast<const float*>(taps_fg);
   const float* tb = static_cast<const float*>(taps_bg);
   for (int u = 0; u < k_fg; ++u) a.taps_fg[u] = tf[u];
@@ -197,12 +627,34 @@ extern "C" int seed_classify_launch(const void* fgz, const void* bgz,
   a.th = th;
   a.n_lvl = n_lvl;
   a.edge = edge;
-  const size_t smem =
-      smem_floats(k_fg > k_bg ? k_fg : k_bg) * sizeof(float);
   const dim3 grid((ny + TY - 1) / TY, (nx + TX - 1) / TX);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k_fg == 7 && k_bg == 61) return launch<7, 61>(a, smem, grid, s);
-  return launch<0, 0>(a, smem, grid, s);
+  if (mma)
+    return launch(seed_classify_mma_kernel, a,
+                  MMA_SMEM_FLOATS * sizeof(float), grid, s);
+  return launch(seed_classify_kernel, a,
+                smem_floats(k_fg > k_bg ? k_fg : k_bg) * sizeof(float), grid,
+                s);
+}
+
+// the fragment-layout proof: d = a b on one warp (device pointers, 16x8,
+// 8x8, 16x8 f32)
+extern "C" int seed_classify_mma_selftest(const void* a, const void* b,
+                                          void* d, void* stream) {
+  mma_selftest_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(d));
+  return (int)cudaGetLastError();
+}
+
+// the tensor cores' sustained rate for this kernel's instruction: `blocks`
+// blocks of NT threads, each warp 8 * iters mma.sync.m16n8k8 TF32 products
+// on independent accumulators; out holds blocks * NT / 32 floats
+extern "C" int seed_classify_mma_rate(int blocks, int iters, void* out,
+                                      void* stream) {
+  mma_rate_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      iters, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ia3_cuda_error_string(int code) {

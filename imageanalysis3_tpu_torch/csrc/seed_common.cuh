@@ -99,21 +99,15 @@ __device__ __forceinline__ void blur_plane(const float* __restrict__ plane,
   __syncthreads();
 }
 
-// blur_plane for a compile-time tap count K and window RO x CO, register
-// blocked: an x-pass work item computes MBX consecutive rows of one column
-// from MBX + K - 1 shared loads, a y-pass item MBY consecutive columns of
-// one row (neighbouring threads take neighbouring rows, so the x-passed
-// rows get an odd stride).  Each output still sums its taps in order, so
-// the result equals blur_plane's bit for bit.
-template <int K, int RO, int CO, int MBX, int MBY, int NT, class Store>
-__device__ __forceinline__ void blur_plane_blocked(
-    const float* __restrict__ plane, int nx, int ny, int gx0, int gy0,
-    const float* __restrict__ taps, float* S, float* XP, Store store) {
-  static_assert(RO % MBX == 0 && CO % MBY == 0, "blocks must tile");
-  constexpr int R = K / 2;
-  constexpr int SC = CO + 2 * R;
+// The x pass of blur_plane_blocked: a raw window staged in S (row stride
+// CO + K - 1) and visible to the block, into the x-passed rows XP (row
+// stride (CO + K - 1) | 1).  No barrier.
+template <int K, int RO, int CO, int MBX, int NT>
+__device__ __forceinline__ void blur_staged_x(const float* __restrict__ taps,
+                                              const float* S, float* XP) {
+  static_assert(RO % MBX == 0, "blocks must tile");
+  constexpr int SC = CO + K - 1;
   constexpr int XS = SC | 1;
-  stage_window<NT>(plane, nx, ny, gx0 - R, gy0 - R, RO + 2 * R, SC, S);
   for (int e = threadIdx.x; e < (RO / MBX) * SC; e += NT) {
     const int g = e / SC, j = e - g * SC;
     const float* src = S + g * MBX * SC + j;
@@ -132,7 +126,15 @@ __device__ __forceinline__ void blur_plane_blocked(
 #pragma unroll
     for (int m = 0; m < MBX; ++m) XP[(g * MBX + m) * XS + j] = acc[m];
   }
-  __syncthreads();
+}
+
+// The y pass of blur_plane_blocked: the x-passed rows XP, visible to the
+// block, into store(i, j, value).  No barrier.
+template <int K, int RO, int CO, int MBY, int NT, class Store>
+__device__ __forceinline__ void blur_staged_y(const float* __restrict__ taps,
+                                              const float* XP, Store store) {
+  static_assert(CO % MBY == 0, "blocks must tile");
+  constexpr int XS = (CO + K - 1) | 1;
   for (int e = threadIdx.x; e < RO * (CO / MBY); e += NT) {
     const int h = e / RO, i = e - h * RO;
     const float* src = XP + i * XS + h * MBY;
@@ -151,6 +153,24 @@ __device__ __forceinline__ void blur_plane_blocked(
 #pragma unroll
     for (int m = 0; m < MBY; ++m) store(i, h * MBY + m, acc[m]);
   }
+}
+
+// blur_plane for a compile-time tap count K and window RO x CO, register
+// blocked: an x-pass work item computes MBX consecutive rows of one column
+// from MBX + K - 1 shared loads, a y-pass item MBY consecutive columns of
+// one row (neighbouring threads take neighbouring rows, so the x-passed
+// rows get an odd stride).  Each output still sums its taps in order, so
+// the result equals blur_plane's bit for bit.
+template <int K, int RO, int CO, int MBX, int MBY, int NT, class Store>
+__device__ __forceinline__ void blur_plane_blocked(
+    const float* __restrict__ plane, int nx, int ny, int gx0, int gy0,
+    const float* __restrict__ taps, float* S, float* XP, Store store) {
+  constexpr int R = K / 2;
+  stage_window<NT>(plane, nx, ny, gx0 - R, gy0 - R, RO + 2 * R, CO + 2 * R,
+                   S);
+  blur_staged_x<K, RO, CO, MBX, NT>(taps, S, XP);
+  __syncthreads();
+  blur_staged_y<K, RO, CO, MBY, NT>(taps, XP, store);
   __syncthreads();
 }
 

@@ -24,7 +24,11 @@ qualifies (3^3 local max inside the edge margin, -inf elsewhere) and the
 per-level histogram of those voxels.  Each dispatcher runs the CUDA kernel
 for a CUDA tensor and the plain version for a CPU tensor, and raises on any
 other device.  Kernel and plain version sum every blur in the same tap
-order, so they agree bit for bit.
+order, so they agree bit for bit, with one exception: for the default taps
+(7 and 61) ``seed_classify.cu`` computes the background's x and y passes on
+the tensor cores as banded split-TF32 products (:func:`band_fragments`;
+its arithmetic model is :func:`blur_xy_split_tf32_plain`), and is held to
+the JAX tests' tolerances for the fused classifier instead.
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ import numpy as np
 import torch
 
 from .. import _build
-from .filters import (_band_matrix, _conv1d_along_axis, _shift_add,
-                      _window_reduce, full_f32_matmul, gaussian_kernel1d)
+from .filters import (_band_matrix, _conv1d_along_axis, _pad_axis,
+                      _shift_add, _window_reduce, full_f32_matmul,
+                      gaussian_kernel1d)
 
 #: launches of each kernel's CUDA wrapper since the last reset
 launches: Dict[str, int] = {"seed_pyramid": 0, "seed_classify": 0,
@@ -301,14 +306,108 @@ def fused_seed_classify_plain(fgz: torch.Tensor, bgz: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``csrc/seed_classify.cu`` on the same
     z-passed inputs -> (qdiff (Z, X, Y) f32, counts (n_lvl,) int32)."""
-    fg = _blur_xy(fgz, k_fg)
-    bg = _blur_xy(bgz, k_bg)
+    return classify_blurred(_blur_xy(fgz, k_fg), _blur_xy(bgz, k_bg), th,
+                            n_lvl, min_edge_distance)
+
+
+def classify_blurred(fg: torch.Tensor, bg: torch.Tensor, th: float,
+                     n_lvl: int, min_edge_distance: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact classifier's in-range 3^3 stencil and level histogram on
+    two blurred stacks -> (qdiff, counts)."""
     local_max = ((_window_reduce(fg, 3, "constant", "max") == fg)
                  & (_window_reduce(bg, 3, "constant", "min") != bg))
     diff = fg - bg
     qualify = local_max & _edge_ok(fg.shape, min_edge_distance, fg.device)
     counts = _histogram(_levels(diff[qualify], th, n_lvl), n_lvl)
     return torch.where(qualify, diff, float("-inf")), counts
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 `x` as two TF32 values (hi, lo), x = hi + lo up to 2^-22
+    relative: hi rounds x to 10 mantissa bits (to nearest, ties away from
+    zero, PTX ``cvt.rna.tf32.f32``), lo rounds the exact remainder."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+#: the tap counts (fg, bg) whose bg passes seed_classify.cu runs on the
+#: tensor cores (KF_MMA, KB_MMA there)
+MMA_TAPS = (7, 61)
+
+
+def band_chunks(k: int, width: int) -> int:
+    """8-deep chunks of the k-tap band under `width` outputs."""
+    return -(-(width + k - 1) // 8)
+
+
+def band_fragments(taps: np.ndarray) -> np.ndarray:
+    """The constant band of `taps` as the per-lane ``mma.sync.m16n8k8`` TF32
+    fragment table (chunks, 32, 4) seed_classify.cu reads: for 8-deep band
+    chunk c and lane (g = lane >> 2, t = lane & 3) the values
+    d = taps[8c + t - g] and e = taps[8c + t - g + 4] (0 outside the taps),
+    stored (d.hi, e.hi, d.lo, e.lo).  The band is Toeplitz, so these are
+    every fragment: the x pass's A operand (a 16-row tile of A[i][k] =
+    taps[k - i]) has (a0, a1, a2, a3) = (d_c, d_{c-1}, e_c, e_{c-1}), the
+    y pass's B operand (an 8-column tile of B[k][n] = taps[k - n]) has
+    (b0, b1) = (d_c, e_c), and every row or column tile sees the same
+    band."""
+    taps = np.ascontiguousarray(taps, np.float32)
+    k = len(taps)
+    lane = np.arange(32)
+    u = (8 * np.arange(band_chunks(k, 16))[:, None, None]
+         + np.stack([(lane & 3) - (lane >> 2),
+                     (lane & 3) - (lane >> 2) + 4], axis=1))
+    inside = (u >= 0) & (u < k)
+    return np.concatenate(
+        [np.where(inside, part.numpy()[np.clip(u, 0, k - 1)], np.float32(0))
+         for part in tf32_split(torch.from_numpy(taps))],
+        axis=2).astype(np.float32)
+
+
+def _banded_split_tf32(im: torch.Tensor, kernel: np.ndarray, axis: int
+                       ) -> torch.Tensor:
+    """'reflect' correlation along `axis` as one banded product with both
+    operands split in TF32 halves: hi*hi + hi*lo + lo*hi, summed in f32."""
+    n, r = im.shape[axis], len(kernel) // 2
+    padded = _pad_axis(im, axis, r, r, "reflect").movedim(axis, -1)
+    band = np.zeros((n + 2 * r, n), np.float32)
+    for u, w in enumerate(np.asarray(kernel, np.float32)):
+        band[np.arange(n) + u, np.arange(n)] = w
+    bh, bl = tf32_split(torch.from_numpy(band).to(im.device))
+    dh, dl = tf32_split(padded)
+    with full_f32_matmul():
+        out = dl @ bh + dh @ bl + dh @ bh
+    return out.movedim(-1, axis)
+
+
+def blur_xy_split_tf32_plain(im: torch.Tensor, kernel: np.ndarray
+                             ) -> torch.Tensor:
+    """Arithmetic model of seed_classify.cu's tensor-core bg blur: the x
+    then the y 'reflect' pass, each a banded split-TF32 product.  It sums
+    in another order than the kernel's 8-deep chunks, so it bounds the
+    kernel's error and does not reproduce its bits; tests use it and no
+    path does."""
+    return _banded_split_tf32(_banded_split_tf32(im, kernel, 1), kernel, 2)
+
+
+_band_tables: Dict[tuple, torch.Tensor] = {}
+
+
+def _band_table(taps: np.ndarray, device) -> torch.Tensor:
+    """band_fragments(taps) as one flat device tensor, made once per (taps,
+    device)."""
+    key = (taps.tobytes(), str(device))
+    table = _band_tables.get(key)
+    if table is None:
+        table = torch.from_numpy(band_fragments(taps).ravel()).to(device)
+        _band_tables[key] = table
+    return table
 
 
 def fused_seed_classify_cuda(fgz: torch.Tensor, bgz: torch.Tensor,
@@ -327,15 +426,55 @@ def fused_seed_classify_cuda(fgz: torch.Tensor, bgz: torch.Tensor,
     z, x, y = fgz.shape
     qdiff = torch.empty_like(fgz)
     counts = torch.zeros(n_lvl, dtype=torch.int32, device=fgz.device)
+    band = (_band_table(tb, fgz.device).data_ptr()
+            if (len(tf), len(tb)) == MMA_TAPS else None)
     _launch("seed_classify",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
             + [ctypes.c_void_p],
             fgz.data_ptr(), bgz.data_ptr(), qdiff.data_ptr(),
             counts.data_ptr(), tf.ctypes.data, len(tf), tb.ctypes.data,
-            len(tb), z, x, y, float(th), int(n_lvl), int(min_edge_distance),
-            _stream(fgz))
+            len(tb), band, z, x, y, float(th), int(n_lvl),
+            int(min_edge_distance), _stream(fgz))
     return qdiff, counts
+
+
+def mma_selftest_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (16, 8) @ b (8, 8) on one warp through seed_classify.cu's
+    split-TF32 ``mma.sync`` helper: the proof of its fragment layout."""
+    _check("seed_classify", a, "a", (16, 8))
+    _check("seed_classify", b, "b", (8, 8))
+    d = torch.empty_like(a)
+    fn = _build.load("seed_classify").seed_classify_mma_selftest
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4
+    rc = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), _stream(a))
+    if rc != 0:
+        raise RuntimeError(f"seed_classify mma selftest failed ({rc})")
+    return d
+
+
+def mma_rate_cuda(device, iters: int = 4096) -> Tuple[int, float]:
+    """(products, ms): what seed_classify.cu's ``mma.sync.m16n8k8`` TF32
+    instruction sustains with one 16-warp block on every SM, each warp
+    running 8 * iters products on independent accumulators."""
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count
+    out = torch.empty(blocks * 16, dtype=torch.float32, device=device)
+    fn = _build.load("seed_classify").seed_classify_mma_rate
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for timed in (False, True):
+        if timed:
+            ev[0].record()
+        rc = fn(blocks, iters, out.data_ptr(), _stream(out))
+        if rc != 0:
+            raise RuntimeError(f"seed_classify mma rate kernel failed ({rc})")
+    ev[1].record()
+    torch.cuda.synchronize(device)
+    return blocks * 16 * 8 * iters, ev[0].elapsed_time(ev[1])
 
 
 def fused_supported(shape, gfilt_size: float, background_gfilt_size: float,

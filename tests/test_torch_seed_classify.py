@@ -2,6 +2,8 @@
 
 The port's kernels run as their plain versions on CPU tensors; the JAX
 Pallas kernels run in interpret mode, as tests/test_pallas.py runs them.
+The tensor-core background blur of seed_classify.cu is held through its
+arithmetic model and its band-fragment table.
 Inputs are made with NumPy from a seed and handed to both packages.
 """
 
@@ -18,7 +20,8 @@ from imageanalysis3_tpu.ops.pallas_kernels import (dual_gaussian_blur,
                                                    level_stencil_pallas)
 from imageanalysis3_tpu_torch.ops import seed_kernels as tk
 from imageanalysis3_tpu_torch.ops import seeding as ts
-from imageanalysis3_tpu_torch.ops.filters import gaussian_kernel1d
+from imageanalysis3_tpu_torch.ops.filters import (_band_matrix,
+                                                  gaussian_kernel1d)
 
 torch.set_num_threads(2)
 SHAPES = [(12, 64, 256), (4, 128, 256)]
@@ -104,6 +107,144 @@ def test_fused_classify_plain_matches_jax(shape, reference):
         q_j, c_j = js._level_diff_hist(jnp.asarray(im), 300.0, 0, shape[1],
                                        shape, 0.75, 7.5, 3, 2, 10)
     _check_classifier(q_t.numpy(), c_t, q_j, c_j)
+
+
+def test_tf32_split_rounds_to_ten_bits_and_recovers_the_value():
+    """hi's low 13 mantissa bits are zero (so are lo's), hi + lo is within
+    2^-22 relative of x, and hi rounds to nearest: for the default 7- and
+    61-tap kernels and random f32."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        gaussian_kernel1d(0.75), gaussian_kernel1d(7.5),
+        rng.uniform(-65535.0, 65535.0, 4096).astype(np.float32),
+        (rng.standard_normal(4096) * 1e-3).astype(np.float32)])
+    hi, lo = (t.numpy() for t in tk.tf32_split(torch.from_numpy(x)))
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    assert not (lo.view(np.uint32) & 0x1FFF).any()
+    x64 = x.astype(np.float64)
+    assert (np.abs(hi.astype(np.float64) + lo - x64)
+            <= 2.0 ** -22 * np.abs(x64)).all()
+    assert (np.abs(hi - x64) <= 2.0 ** -11 * np.abs(x64)).all()
+    # a tie rounds away from zero, as cvt.rna does
+    tie = np.array([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)], np.float32)
+    np.testing.assert_array_equal(
+        tk.tf32_split(torch.from_numpy(tie))[0].numpy(),
+        np.array([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)], np.float32))
+
+
+def _band_from_fragments(table, k):
+    """The dense bands a kernel reading tk.band_fragments multiplies
+    by, hi + lo, put together as the kernel puts its fragments together:
+    A (16, 8 chunks) of the x pass and, from the chunks an 8-column tile
+    needs, B (8 chunks, 8) of the y pass."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    d = table[:, :, 0] + table[:, :, 2]
+    e = table[:, :, 1] + table[:, :, 3]
+    zero = np.zeros(32, np.float32)
+    n_a, n_b = table.shape[0], tk.band_chunks(k, 8)
+    a = np.zeros((16, 8 * n_a), np.float32)
+    b = np.zeros((8 * n_b, 8), np.float32)
+    for c in range(n_a):
+        a[g, 8 * c + t] = d[c]
+        a[g + 8, 8 * c + t] = d[c - 1] if c else zero
+        a[g, 8 * c + t + 4] = e[c]
+        a[g + 8, 8 * c + t + 4] = e[c - 1] if c else zero
+    for c in range(n_b):
+        b[8 * c + t, g] = d[c]
+        b[8 * c + t + 4, g] = e[c]
+    return a, b
+
+
+@pytest.mark.parametrize("sigma", [0.75, 7.5])
+def test_band_fragments_rebuild_the_toeplitz_band(sigma):
+    """The per-lane mma fragments handed to the kernel, put back into dense
+    matrices, are the Toeplitz band of the taps (filters._band_matrix's
+    interior rows) to within hi + lo's 2^-22, the same for every row tile
+    and column tile; every entry is a TF32 value."""
+    taps = gaussian_kernel1d(sigma)
+    k, r = len(taps), len(taps) // 2
+    table = tk.band_fragments(taps)
+    assert table.shape == (tk.band_chunks(k, 16), 32, 4)
+    assert table.dtype == np.float32
+    assert not (table.view(np.uint32) & 0x1FFF).any()
+    a, b = _band_from_fragments(table, k)
+    assert b.shape == (8 * tk.band_chunks(k, 8), 8)
+    n = 4 * k + 64
+    w = _band_matrix(n, tuple(taps.tolist()), "reflect")
+    for i0 in (r, r + 16, r + 32, n - r - 16):      # row tiles of the x pass
+        want = np.zeros_like(a)
+        width = min(a.shape[1], n - (i0 - r))
+        want[:, :width] = w[i0:i0 + 16, i0 - r:i0 - r + width]
+        np.testing.assert_allclose(a, want, rtol=2.0 ** -22, atol=0)
+    for j0 in (r, r + 8, r + 24, n - r - 8):        # column tiles of the y
+        want = np.zeros_like(b)
+        depth = min(b.shape[0], n - (j0 - r))
+        want[:depth] = w[j0:j0 + 8, j0 - r:j0 - r + depth].T
+        np.testing.assert_allclose(b, want, rtol=2.0 ** -22, atol=0)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("full_range", [False, True])
+def test_split_tf32_blur_model_within_tolerance_of_tap_order(shape,
+                                                             full_range):
+    """The tensor-core bg blur's arithmetic model against the tap-ordered
+    blur: rtol 1e-5 / atol 5e-3 for inputs 50-3000 (the split keeps ~2^-22
+    of each operand), and inside the classifier's atol 0.05 over the whole
+    uint16 range, reflect edges included."""
+    rng = np.random.default_rng(8)
+    lo, hi = (0, 65536) if full_range else (50, 3000)
+    im = torch.from_numpy(rng.integers(lo, hi, shape).astype(np.float32))
+    k_bg = gaussian_kernel1d(7.5)
+    got = tk.blur_xy_split_tf32_plain(im, k_bg).numpy()
+    want = tk._blur_xy(im, k_bg).numpy()
+    if full_range:
+        np.testing.assert_allclose(got, want, rtol=0, atol=0.05)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=5e-3)
+
+
+def _model_classify(im, min_edge_distance=2):
+    """The exact classifier as seed_classify.cu computes it for the default
+    taps: fg passes in tap order, bg passes by the split-TF32 model."""
+    k_fg, k_bg = gaussian_kernel1d(0.75), gaussian_kernel1d(7.5)
+    fgz, bgz = tk.z_pass_pair(torch.from_numpy(im), k_fg, k_bg)
+    q, c = tk.classify_blurred(tk._blur_xy(fgz, k_fg),
+                               tk.blur_xy_split_tf32_plain(bgz, k_bg),
+                               300.0, 10, min_edge_distance)
+    return (fgz, bgz, k_fg, k_bg), q, c
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("reference", ["plain", "pallas_interpret",
+                                       "level_diff_hist"])
+def test_split_tf32_classifier_model_matches_references(shape, reference):
+    """The classifier on the model's bg meets the fused classifier's
+    tolerances against the port's plain version, the Pallas kernel in
+    interpret mode and the unfused seeding._level_diff_hist."""
+    im = _raw(shape, 7)
+    zpassed, q_m, c_m = _model_classify(im)
+    if reference == "plain":
+        q_r, c_r = tk.fused_seed_classify_plain(*zpassed, 300.0, 10, 2)
+        q_r, c_r = q_r.numpy(), c_r.numpy()
+    elif reference == "pallas_interpret":
+        q_r, c_r = fused_seed_classify(jnp.asarray(im), 0.75, 7.5, 300.0,
+                                       10, min_edge_distance=2,
+                                       interpret=True)
+    else:
+        q_r, c_r = js._level_diff_hist(jnp.asarray(im), 300.0, 0, shape[1],
+                                       shape, 0.75, 7.5, 3, 2, 10)
+    _check_classifier(q_m.numpy(), c_m, q_r, c_r)
+
+
+def test_split_tf32_classifier_model_counts_nothing_on_a_constant_stack():
+    """On a flat stack the split products need not give equal bg values, so
+    voxels may pass min3 != bg; their diff is ~0, which is level n_lvl and
+    is never counted."""
+    _, q, c = _model_classify(np.full((6, 64, 128), 800.0, np.float32))
+    assert int(c.sum()) == 0
+    fin = torch.isfinite(q)
+    assert not fin.any() or float(q[fin].abs().max()) < 0.05
 
 
 def test_fused_classify_plain_equals_its_blur_parts():
