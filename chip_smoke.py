@@ -11,9 +11,12 @@ Phases, each of which raises (exit code != 0) on a failed check:
    CUDA kernels from ``imageanalysis3_tpu_torch/csrc`` (one nvcc per
    source, started together);
 2. kernels: each kernel against its plain PyTorch version on the rendered
-   60x2048x2048 bench scene (the pyramid classifier; the exact classifier,
-   whose default taps run the bg blur on the tensor cores and are held by
-   tolerance, with the one-warp proof of its mma fragment layout, two equal
+   60x2048x2048 bench scene (the pyramid classifier, held equal to its
+   plain version there, on a ragged 12x196x260 stack and through its
+   run-time-radius code, with its registers, shared memory and resident
+   warps; the exact classifier, whose default taps run the bg blur on the
+   tensor cores and are held by tolerance, with the one-warp proof of its
+   mma fragment layout, two equal
    launches, a constant stack and a full-range input; the dual x+y blur and
    the level stencil; the three exact kernels also through their
    bit-identical run-time-radius code on a small stack; the LM fit on round 0's 2048
@@ -55,8 +58,8 @@ The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
 record goes to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds one
 slice-1 round under torch.profiler (device time by kernel, device busy
-share).  ``--only seed_classify`` builds that kernel alone and runs its
-checks and timing, nothing else.
+share).  ``--only seed_classify`` and ``--only seed_pyramid`` build that
+kernel alone and run its checks and timing, nothing else.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +95,35 @@ def _smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _function_name(mangled: str) -> str:
+    """The kernel's own identifier in an Itanium-mangled name (the one whose
+    length prefix spans it and that ends in kernel, selftest or rate), with
+    a template radius as <R>."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for k in range(len(digits)):
+            start, n = m.end(), int(digits[k:])
+            ident = mangled[start:start + n]
+            if re.fullmatch(r"[A-Za-z_]\w*(kernel|selftest|rate)", ident):
+                t = re.match(r"ILi(\d+)E", mangled[start + n:])
+                return ident + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
+def _ptxas_report(log: str):
+    """One line per function from ``nvcc -Xptxas -v`` output: its name,
+    registers, stack and spills."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = _function_name(line.split("for", 1)[1].strip())
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def _peaks(name: str):
@@ -301,6 +334,102 @@ def _seed_classify_checks(torch, sk, corrected, k_fg, k_bg, peaks,
             "mma_rate_tflops": mma_tflops,
             "ms": ms, "plain_ms": plain_ms, "bound": bound,
             "byte_bound_ms": byte_bound_ms, "zpass": zpass}
+
+
+def _seed_pyramid_checks(torch, sk, corrected, k_fg, sig_bg, peaks,
+                         smi: str) -> dict:
+    """Everything held of seed_pyramid: kernel and plain version EQUAL
+    (torch.equal on qdiff and counts) on the corrected 60x2048x2048 stack,
+    on a ragged 12x196x260 crop (no side a multiple of the 16x64 tile, both
+    image edges inside one block) and through the run-time-radius kernel
+    (fg sigma 1.5, radius 6) on a 12x256x256 crop and on the ragged crop;
+    a flat plateau counts nothing.  Then the kernel's
+    registers (ptxas) and the resident warps per SM the card grants, and
+    CUDA-event medians of kernel, plain version and the host prep
+    (pyramid_background) over the fresh inputs, beside the bound."""
+    from imageanalysis3_tpu_torch import _build
+    from imageanalysis3_tpu_torch.ops.filters import gaussian_kernel1d
+
+    dev = corrected[0].device
+
+    def held(label, im, taps, th=TH_SEED):
+        inp = (im, sk.pyramid_background(im, sig_bg), taps, th, N_LVL, EDGE)
+        qk, ck = sk.fused_seed_classify_pyramid_cuda(*inp)
+        qp, cp = sk.fused_seed_classify_pyramid_plain(*inp)
+        torch.cuda.synchronize()
+        fk, fp = torch.isfinite(qk), torch.isfinite(qp)
+        both = fk & fp
+        out = {"equal": torch.equal(qk, qp) and torch.equal(ck, cp),
+               "max_abs_err": _max_abs(torch, qk[both], qp[both]),
+               "n_disagree": int((fk != fp).sum()), "n_qual": int(fp.sum()),
+               "n_sel": int((fp & (qp >= th)).sum()),
+               "counts": (int(ck.sum()), int(cp.sum()))}
+        if not out["equal"]:
+            raise AssertionError(
+                f"seed_pyramid {label}: kernel differs from its plain "
+                f"version ({out['n_disagree']} voxels qualify differently, "
+                f"max |dqdiff| {out['max_abs_err']}, counts "
+                f"{out['counts']})")
+        return out
+
+    k_wide = gaussian_kernel1d(1.5)
+    ragged = corrected[0][20:32, 300:496, 500:760].contiguous()
+    checks = {
+        "bench": held("bench scene", corrected[0], k_fg),
+        "ragged": held("12x196x260", ragged, k_fg),
+        "radius6": held("fg radius 6",
+                        corrected[0][:12, :256, :256].contiguous(), k_wide),
+        "radius6_ragged": held("fg radius 6, 12x196x260", ragged, k_wide)}
+    flat = torch.full((8, 256, 256), 800.0, device=dev)
+    _, cflat = sk.fused_seed_classify_pyramid_cuda(
+        flat, sk.pyramid_background(flat, sig_bg), k_fg, 10.0, N_LVL, EDGE)
+    if int(cflat.sum()) != 0:
+        raise AssertionError(f"seed_pyramid: flat plateau gave "
+                             f"{int(cflat.sum())} candidates")
+
+    ptxas = _ptxas_report(_build.build_logs.get("seed_pyramid", ""))
+    occupancy = {}
+    for r in (len(k_fg) // 2, len(k_wide) // 2):
+        blocks, threads, smem = sk.pyramid_occupancy_cuda(r)
+        occupancy[r] = {"blocks_per_sm": blocks, "smem_bytes": smem,
+                        "warps_per_sm": blocks * threads // 32}
+
+    pyr_in = [(im, sk.pyramid_background(im, sig_bg), k_fg, TH_SEED, N_LVL,
+               EDGE) for im in corrected]
+    ms = _events_ms(torch, sk.fused_seed_classify_pyramid_cuda, pyr_in,
+                    queue_ahead=True)
+    plain_ms = _events_ms(torch, sk.fused_seed_classify_pyramid_plain,
+                          pyr_in, queue_ahead=False)
+    bg_ms = _events_ms(torch, sk.pyramid_background,
+                       [(im, sig_bg) for im in corrected], queue_ahead=True)
+    nvox = float(corrected[0].numel())
+    taps = len(k_fg)
+    nbytes = 4 * nvox * 2 + 4 * nvox / 16 + 4 * N_LVL
+    # 3 separable passes of `taps` products and taps-1 sums, 9 for the
+    # bilinear bg, 26 maxima, the difference and the compare; 4 more per
+    # qualifying voxel for its level
+    ops = nvox * (3 * (2 * taps - 1) + 9 + 26 + 2) \
+        + 4 * checks["bench"]["n_qual"]
+    bound = _bound(nbytes, ops, peaks)
+    b = checks["bench"]
+    print(f"seed_pyramid: PASS  equal to its plain version (qdiff and "
+          f"counts) on the bench scene ({b['n_qual']} voxels qualify, "
+          f"{b['n_sel']} selected, counts {b['counts'][0]}), on a ragged "
+          f"12x196x260 stack and through the radius-6 kernel (12x256x256 "
+          f"and ragged); flat plateau 0")
+    for line in ptxas:
+        print(f"  ptxas seed_pyramid: {line}")
+    print(f"  occupancy seed_pyramid: "
+          + ", ".join(f"fg radius {r}: {o['smem_bytes']} B shared memory "
+                      f"a block, {o['blocks_per_sm']} blocks, "
+                      f"{o['warps_per_sm']} warps per SM"
+                      for r, o in occupancy.items()))
+    print(f"kernels: seed_pyramid {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]}, {bound[0] / ms:.3f} of "
+          f"it); host prep pyramid_background {bg_ms:.4f} ms  [{smi}]")
+    return {**checks["bench"], "checks": checks, "ptxas": ptxas,
+            "occupancy": occupancy, "ms": ms, "plain_ms": plain_ms,
+            "background_ms": bg_ms, "bound": bound}
 
 
 def _check_dual_blur(torch, sk, inp) -> dict:
@@ -926,7 +1055,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one round (device time by kernel)")
-    ap.add_argument("--only", choices=["seed_classify"],
+    ap.add_argument("--only", choices=["seed_classify", "seed_pyramid"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line)")
@@ -967,9 +1096,8 @@ def main(argv=None) -> int:
     build_s = _build.build([args.only] if args.only else _build.KERNELS)
     print(f"kernel build: {build_s:.2f} s")
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in _ptxas_report(log):
+            print(f"  ptxas {name}: {line}")
     record.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s)
     dev = torch.device("cuda")
@@ -1013,65 +1141,15 @@ def main(argv=None) -> int:
         _seed_classify_checks(torch, seed_kernels, corrected, k_fg,
                               gaussian_kernel1d(sig_bg), peaks, smi)
         return 0
-    pyr_in = [(im, seed_kernels.pyramid_background(im, sig_bg), k_fg,
-               TH_SEED, N_LVL, EDGE) for im in corrected]
-    qk, ck = seed_kernels.fused_seed_classify_pyramid_cuda(*pyr_in[0])
-    qp, cp = seed_kernels.fused_seed_classify_pyramid_plain(*pyr_in[0])
-    torch.cuda.synchronize()
-    fin_k, fin_p = torch.isfinite(qk), torch.isfinite(qp)
-    sel_k, sel_p = fin_k & (qk >= TH_SEED), fin_p & (qp >= TH_SEED)
-    n_sel = int(sel_p.sum())
-    if not torch.equal(sel_k, sel_p):
-        raise AssertionError("seed_pyramid: selected sets differ "
-                             f"({int(sel_k.sum())} vs {n_sel})")
-    qual_agree = float((fin_k == fin_p).double().mean())
-    if not qual_agree > 1 - 1e-5:
-        raise AssertionError(f"seed_pyramid: qualification agrees on "
-                             f"{qual_agree} of voxels")
-    if not torch.allclose(qk[sel_p], qp[sel_p], rtol=1e-4, atol=0.0):
-        raise AssertionError("seed_pyramid: qdiff on selected voxels "
-                             "differs beyond rtol 1e-4")
-    both = fin_k & fin_p
-    pyr_err = float((qk[both] - qp[both]).abs().max()) if both.any() else 0.0
-    dcount = abs(int(ck.sum()) - int(cp.sum()))
-    if dcount > 2:
-        raise AssertionError(f"seed_pyramid: counts differ by {dcount}")
-    flat = torch.full((8, 256, 256), 800.0, device=dev)
-    _, cflat = seed_kernels.fused_seed_classify_pyramid_cuda(
-        flat, seed_kernels.pyramid_background(flat, sig_bg), k_fg, 10.0,
-        N_LVL, EDGE)
-    if int(cflat.sum()) != 0:
-        raise AssertionError(f"seed_pyramid: flat plateau gave "
-                             f"{int(cflat.sum())} candidates")
-    # the kernel's generic path (fg radius > 3) on a small stack
-    k_wide = gaussian_kernel1d(1.5)
-    small = corrected[0][:12, :256, :256].contiguous()
-    wide_in = (small, seed_kernels.pyramid_background(small, sig_bg), k_wide,
-               TH_SEED, N_LVL, EDGE)
-    qw, cw = seed_kernels.fused_seed_classify_pyramid_cuda(*wide_in)
-    qwp, cwp = seed_kernels.fused_seed_classify_pyramid_plain(*wide_in)
-    if not (torch.equal(qw, qwp) and torch.equal(cw, cwp)):
-        raise AssertionError("seed_pyramid: fg radius 6 path differs from "
-                             "its plain version")
-    n_qual = int(fin_p.sum())
-    del qk, qp, fin_k, fin_p, sel_k, sel_p, both
-    pyr_ms = _events_ms(torch, seed_kernels.fused_seed_classify_pyramid_cuda,
-                        pyr_in, queue_ahead=True)
-    pyr_plain_ms = _events_ms(
-        torch, seed_kernels.fused_seed_classify_pyramid_plain, pyr_in,
-        queue_ahead=False)
+    if args.only == "seed_pyramid":
+        _seed_pyramid_checks(torch, seed_kernels, corrected, k_fg, sig_bg,
+                             peaks, smi)
+        return 0
+    pyr = _seed_pyramid_checks(torch, seed_kernels, corrected, k_fg, sig_bg,
+                               peaks, smi)
+    pyr_err, pyr_ms, pyr_plain_ms = pyr["max_abs_err"], pyr["ms"], pyr["plain_ms"]
+    pyr_bound = pyr["bound"]
     nvox = float(np.prod(shape))
-    taps = len(k_fg)
-    pyr_bytes = 4 * nvox * 2 + 4 * nvox / 16 + 4 * N_LVL
-    # 3 separable passes of `taps` products and taps-1 sums, 9 for the
-    # bilinear bg, 26 maxima, the difference and the compare; 4 more per
-    # qualifying voxel for its level
-    pyr_ops = nvox * (3 * (2 * taps - 1) + 9 + 26 + 2) + 4 * n_qual
-    pyr_bound = _bound(pyr_bytes, pyr_ops, peaks)
-    print(f"seed_pyramid: PASS  selected {n_sel}, qualification agreement "
-          f"{qual_agree:.9f}, max |dqdiff| {pyr_err:.3g}, counts "
-          f"{int(ck.sum())} vs {int(cp.sum())}, flat plateau 0, fg radius 6 "
-          f"path identical")
 
     # the exact classifier's kernels on the same corrected stacks: the
     # z-passed pair feeds seed_classify and dual_blur, the blurred pair
@@ -1236,7 +1314,7 @@ def main(argv=None) -> int:
     gather = _gather_checks(torch, corrected,
                             [st[0][3].to(torch.int32) for st in lm_sets],
                             peaks, smi)
-    del pp, ep, lm_sets, lm_in, jac_in, pyr_in, corrected
+    del pp, ep, lm_sets, lm_in, jac_in, corrected
 
     # ---- 3. main path ----------------------------------------------------
     def check_accuracy(label, res):
@@ -1356,7 +1434,8 @@ def main(argv=None) -> int:
         shape=shape, n_spots=len(truth["centers"]), kernels=kernels,
         max_abs_err_definition={
             "seed_pyramid": "max |qdiff kernel - plain| over voxels both "
-                            "qualify (intensity units)",
+                            "qualify (intensity units); the kernel is held "
+                            "equal (torch.equal) to its plain version",
             "lm_fit": "max |centre kernel - plain| over valid spots (px)",
             "seed_classify": "max |qdiff kernel - plain| over voxels both "
                              "qualify (intensity units); the default taps' "
@@ -1370,7 +1449,7 @@ def main(argv=None) -> int:
             "level_stencil": "max |diff kernel - plain| (intensity units)",
             "gather_cubes": "max |cube kernel - plain| over the four cases "
                             "(intensity units)"},
-        kernel_checks={"seed_classify": cls,
+        kernel_checks={"seed_pyramid": pyr, "seed_classify": cls,
                        "seed_classify_generic_radius": cls_gen,
                        "seed_classify_full_range": sc["cls_full"],
                        "seed_classify_odd_shape": sc["cls_odd"],

@@ -125,8 +125,8 @@ class SeedConfig:
     dynamic_niters: int = 10
     min_dynamic_seeds: int = 1
     max_num_seeds: int = 1024        # fixed capacity of the device seed table
-    # unused since the hierarchical top-k seed extraction (get_seeds does
-    # not take it); kept so a JAX-side config carries across unchanged
+    # unused since the hierarchical top-k seed extraction: get_seeds
+    # accepts and ignores it, as the JAX package's does
     cand_capacity: int = 16384
     # pyramid background: the bg Gaussian runs on a 4x4-pooled grid and is
     # bilinearly upsampled inside the classifier (ops/seed_kernels.py

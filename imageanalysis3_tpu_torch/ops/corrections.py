@@ -20,7 +20,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from .filters import counting_median_layers_and_global, gaussian_highpass
+from .filters import (counting_median_layers_and_global, full_f32_matmul,
+                      gaussian_highpass)
 
 
 def deinterleave_stack(raw: torch.Tensor, rel_starts: Sequence[int],
@@ -73,9 +74,11 @@ def illumination_correct(im: torch.Tensor,
 def bleedthrough_unmix(ims: torch.Tensor,
                        profile: torch.Tensor) -> torch.Tensor:
     """out[i] = sum_j ims[j] * profile[i, j] (per-pixel 2D maps).
-    `ims`: (C, Z, X, Y); `profile`: (C, C, X, Y)."""
-    return torch.einsum("ijxy,jzxy->izxy", profile.to(torch.float32),
-                        ims.to(torch.float32))
+    `ims`: (C, Z, X, Y); `profile`: (C, C, X, Y).  Full f32 whatever the
+    caller's TF32 setting, as the reference runs it at HIGHEST."""
+    with full_f32_matmul():
+        return torch.einsum("ijxy,jzxy->izxy", profile.to(torch.float32),
+                            ims.to(torch.float32))
 
 
 def correct_channel_stack(

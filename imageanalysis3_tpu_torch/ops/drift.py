@@ -20,6 +20,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .filters import full_f32_matmul
+
 _DIMS = (-3, -2, -1)
 
 
@@ -68,9 +70,11 @@ def _upsampled_argmax(R: torch.Tensor, ny_full: int, center: torch.Tensor,
     if ny_full % 2 == 0:
         w[-1] = 1.0
     Wy = torch.polar(torch.ones_like(theta), theta) * w
-    t = torch.einsum("kaz,kzxy->kaxy", Wz, R)
-    t = torch.einsum("kbx,kaxy->kaby", Wx, t)
-    t = torch.einsum("kcy,kaby->kabc", Wy, t)
+    # full f32 whatever the caller's TF32 setting (the reference: HIGHEST)
+    with full_f32_matmul():
+        t = torch.einsum("kaz,kzxy->kaxy", Wz, R)
+        t = torch.einsum("kbx,kaxy->kaby", Wx, t)
+        t = torch.einsum("kcy,kaby->kabc", Wy, t)
     mag = t.real.abs().reshape(k, -1)
     flat = mag.argmax(dim=1)
     idx = torch.stack([flat // (npoints * npoints),

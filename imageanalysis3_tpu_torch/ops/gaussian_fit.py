@@ -32,8 +32,8 @@ import torch
 from ..device import as_tensor
 from .filters import counting_median
 from .gather_kernel import clip_origins, cube_sides, gather_cubes
-from .lm_kernel import (geometry_jacobian, lm_fit, quadform_coeffs, to_sine,
-                        to_ws)
+from .lm_kernel import (geometry_jacobian, lm_fit, lm_fit_plain,
+                        quadform_coeffs, to_sine, to_ws)
 from .matching import pairwise_distances
 from .seeding import Seeds, get_seeds
 
@@ -131,15 +131,42 @@ def init_params(pixels: torch.Tensor, mask: torch.Tensor,
     return torch.cat([bk[:, None], h[:, None], cp, rest], dim=1)
 
 
+LM_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
+
+
+def _lm_backend(lm_backend: str, device: torch.device) -> str:
+    """The reference's ``lm_backend`` names: "auto" picks the kernel for a
+    CUDA tensor and the plain LM elsewhere; "xla" is the plain LM on any
+    device (with ``analytic_jac``); "pallas" the kernel, which needs a
+    CUDA tensor; "pallas_interpret" the plain version of the kernel's
+    arithmetic."""
+    if lm_backend not in LM_BACKENDS:
+        raise ValueError(f"lm_backend must be one of {LM_BACKENDS}, got "
+                         f"{lm_backend!r}")
+    if lm_backend == "auto":
+        return "pallas" if device.type == "cuda" else "xla"
+    if lm_backend == "pallas" and device.type != "cuda":
+        raise ValueError("lm_backend 'pallas' runs the CUDA kernel: the "
+                         f"image must be a CUDA tensor, got {device}")
+    return lm_backend
+
+
 def _batched_lm(pixels, coords, mask, centers, delta_vec, min_w, max_w,
-                init_w, lm_iters, params0):
-    """Batch-fit N gathered blocks -> (params (N, 10), eps (N,))."""
+                init_w, lm_iters, params0, analytic_jac, backend):
+    """Batch-fit N gathered blocks -> (params (N, 10), eps (N,)) with the
+    resolved `backend` (:func:`_lm_backend`): "pallas" the LM dispatcher
+    (the kernel for a CUDA tensor), "xla" the plain LM with `analytic_jac`,
+    "pallas_interpret" the plain LM with the kernel's Jacobian."""
     if params0 is None:
         params0 = init_params(pixels, mask, min_w, max_w, init_w,
                               coords=coords, center_est=centers,
                               delta=delta_vec)
-    return lm_fit(pixels, coords, mask, centers, delta_vec, params0,
-                  min_w, max_w, lm_iters=lm_iters)
+    if backend == "pallas":
+        return lm_fit(pixels, coords, mask, centers, delta_vec, params0,
+                      min_w, max_w, lm_iters=lm_iters)
+    return lm_fit_plain(pixels, coords, mask, centers, delta_vec, params0,
+                        min_w, max_w, lm_iters=lm_iters,
+                        analytic_jac=analytic_jac or backend != "xla")
 
 
 def rebase_center_params(params: torch.Tensor, center_est: torch.Tensor,
@@ -291,7 +318,9 @@ def iter_fit_seed_points(im: torch.Tensor, seeds_zxy: torch.Tensor,
                          n_max_iter: int = 10,
                          max_dist_th: float = 0.1,
                          max_neighbors: int = 12,
-                         max_contested: Optional[int] = None) -> FitResult:
+                         max_contested: Optional[int] = None,
+                         analytic_jac: bool = True,
+                         lm_backend: str = "auto") -> FitResult:
     """Fit all seeds concurrently with block-synchronous subtract-refit.
 
     Round 0 mirrors the reference `firstfit` on ownership-masked pixels:
@@ -304,9 +333,12 @@ def iter_fit_seed_points(im: torch.Tensor, seeds_zxy: torch.Tensor,
     seeds arrive brightest-first, so an overflow freezes the dimmest).
     The round loop reads the convergence flags on the host once per round
     (one synchronisation per Jacobi round) to stop early as the JAX
-    package's while_loop does.
+    package's while_loop does.  `lm_backend` and `analytic_jac` mean what
+    they mean in the JAX package (:func:`_lm_backend`); ``analytic_jac=
+    False`` takes J^T by forward-mode differentiation on the plain LM.
     """
     dev = im.device
+    backend = _lm_backend(lm_backend, dev)
     f32 = torch.float32
     imf = im.to(f32)
     n = seeds_zxy.shape[0]
@@ -327,7 +359,8 @@ def iter_fit_seed_points(im: torch.Tensor, seeds_zxy: torch.Tensor,
     else:
         delta0 = torch.full((n,), min_delta_center, dtype=f32, device=dev)
     params, eps = _batched_lm(pixels, coords, base_mask & own, centers_est,
-                              delta0, min_w, max_w, init_w, lm_iters, None)
+                              delta0, min_w, max_w, init_w, lm_iters, None,
+                              analytic_jac, backend)
     nat = to_natural(params, centers_est, delta0, min_w, max_w, eps)
 
     # rebase contested round-0 params into the wider repeatfit box
@@ -361,7 +394,7 @@ def iter_fit_seed_points(im: torch.Tensor, seeds_zxy: torch.Tensor,
             sub_k = _recon_at(coords_k, nat, nidx_k, nmask_k)
             params_k, new_eps = _batched_lm(
                 pix_k - sub_k, coords_k, mask_k, ce_k, delta_k, min_w,
-                max_w, init_w, repeat_iters, params_k)
+                max_w, init_w, repeat_iters, params_k, analytic_jac, backend)
             new_nat = to_natural(params_k, ce_k, delta_k, min_w, max_w,
                                  new_eps)
             moved2 = ((new_nat[:, 1:4] - nat[sel_idx, 1:4]) ** 2).sum(dim=1)

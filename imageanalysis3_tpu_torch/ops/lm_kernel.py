@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from .filters import full_f32_matmul
 
 #: kernel launches made by :func:`lm_fit_cuda` (reset by callers that
 #: check which path ran)
@@ -81,6 +82,17 @@ def to_sine(tp):
     return torch.tanh(-tp / 2.0)
 
 
+def geometry(params: torch.Tensor, delta: torch.Tensor, min_w: float,
+             max_w: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-spot geometry of constrained params (N, 10): the
+    quadratic-form coefficients A6 (N, 6) and the centre offset (N, 3)."""
+    s = 1.0 / to_ws(params[:, 5:8], min_w * min_w, max_w * max_w)
+    a6 = torch.stack(quadform_coeffs(to_sine(params[:, 9]),
+                                     to_sine(params[:, 8]), s[:, 0], s[:, 1],
+                                     s[:, 2]), dim=1)
+    return a6, delta[:, None] * to_sine(params[:, 2:5])
+
+
 def geometry_jacobian(params: torch.Tensor, delta: torch.Tensor,
                       min_w: float, max_w: float):
     """The per-spot geometry -- quadratic-form coefficients A6 and centre
@@ -94,14 +106,13 @@ def geometry_jacobian(params: torch.Tensor, delta: torch.Tensor,
     """
     n = params.shape[0]
     min_ws, max_ws = min_w * min_w, max_w * max_w
+    a6, coff = geometry(params, delta, min_w, max_w)
     th = to_sine(params[:, 2:5])
-    coff = delta[:, None] * th
     sig = torch.sigmoid(-params[:, 5:8])
     s = 1.0 / to_ws(params[:, 5:8], min_ws, max_ws)
     p = to_sine(params[:, 8])
     t = to_sine(params[:, 9])
     s1, s2, s3 = s[:, 0], s[:, 1], s[:, 2]
-    a6 = torch.stack(quadform_coeffs(t, p, s1, s2, s3), dim=1)
 
     p2, t2 = p * p, t * t
     tc2, pc2 = 1 - t2, 1 - p2
@@ -151,7 +162,7 @@ def geometry_jacobian(params: torch.Tensor, delta: torch.Tensor,
 def _model_residual(params, rel, px, mk, delta, min_w, max_w):
     """(peak, masked residual, d, basis6, exp(bk)) at `params` for relative
     coordinates `rel` (N, P, 3)."""
-    a6, coff, _, _ = geometry_jacobian(params, delta, min_w, max_w)
+    a6, coff = geometry(params, delta, min_w, max_w)
     return _residual_from_geometry(params, a6, coff, rel, px, mk)
 
 
@@ -165,6 +176,48 @@ def _residual_from_geometry(params, a6, coff, rel, px, mk):
     ebk = torch.exp(params[:, 0:1].clamp(-70.0, 70.0))
     r = (ebk + peak - px) * mk
     return peak, r, d, basis6, ebk
+
+
+def _jt_analytic(params, rel, px, mk, delta, min_w, max_w):
+    """(J^T (N, 10, P), masked residual (N, P)) from the hand-written
+    geometry Jacobian: the kernel's arithmetic."""
+    a6, coff, ga, gc = geometry_jacobian(params, delta, min_w, max_w)
+    peak, r, d, basis6, ebk = _residual_from_geometry(
+        params, a6, coff, rel, px, mk)
+    # Cd = -2 M Gc with M the symmetric quadform matrix
+    a11, a22, a33, a12, a13, a23 = a6.unbind(dim=1)
+    mm = torch.stack([torch.stack([a11, 0.5 * a12, 0.5 * a13], -1),
+                      torch.stack([0.5 * a12, a22, 0.5 * a23], -1),
+                      torch.stack([0.5 * a13, 0.5 * a23, a33], -1)],
+                     dim=1)                                # (N, 3, 3)
+    cd = -2.0 * torch.bmm(mm, gc)                          # (N, 3, 10)
+    dq = torch.bmm(ga.transpose(1, 2), basis6) \
+        + torch.bmm(cd.transpose(1, 2), d.transpose(1, 2))  # (N, 10, P)
+    jt = (-0.5 * peak * mk)[:, None, :] * dq
+    in_range = ((params[:, 0] >= -70.0)
+                & (params[:, 0] <= 70.0)).to(params.dtype)
+    jt[:, 0] = (ebk * in_range[:, None]) * mk
+    jt[:, 1] = peak * mk
+    return jt, r
+
+
+def residual_jacobian_jvp(params: torch.Tensor, rel: torch.Tensor,
+                          px: torch.Tensor, mk: torch.Tensor,
+                          delta: torch.Tensor, min_w: float, max_w: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(J^T (N, 10, P), masked residual (N, P)) by forward-mode
+    differentiation of the residual, one tangent per parameter: the
+    counterpart of the reference's ``jax.linearize`` path
+    (``analytic_jac=False``)."""
+    def residual(prm):
+        a6, coff = geometry(prm, delta, min_w, max_w)
+        return _residual_from_geometry(prm, a6, coff, rel, px, mk)[1]
+
+    basis = torch.eye(10, dtype=params.dtype, device=params.device)[:, None, :]
+    basis = basis.expand(10, params.shape[0], 10)
+    r, jt = torch.func.vmap(
+        lambda v: torch.func.jvp(residual, (params,), (v,)))(basis)
+    return jt.permute(1, 0, 2), r[0]
 
 
 def cg_solve_spd(a: torch.Tensor, b: torch.Tensor,
@@ -190,9 +243,12 @@ def lm_fit_plain(pixels: torch.Tensor, coords: torch.Tensor,
                  mask: torch.Tensor, centers: torch.Tensor,
                  delta: torch.Tensor, params0: torch.Tensor,
                  min_w: float, max_w: float, lm_iters: int = 8,
-                 cg_iters: int = 12) -> Tuple[torch.Tensor, torch.Tensor]:
+                 cg_iters: int = 12, analytic_jac: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched constrained LM fit in plain PyTorch -> (params (N, 10),
-    eps (N,)); the same arithmetic as ``csrc/lm_fit.cu``."""
+    eps (N,)); the same arithmetic as ``csrc/lm_fit.cu``.  With
+    ``analytic_jac=False`` J^T comes from :func:`residual_jacobian_jvp`
+    instead of the hand-written geometry Jacobian."""
     f32 = torch.float32
     px = pixels.to(f32)
     mk = mask.to(f32)
@@ -209,26 +265,12 @@ def lm_fit_plain(pixels: torch.Tensor, coords: torch.Tensor,
     cost = cost_of(params)
     lam = torch.full((n,), 1e-3, dtype=f32, device=params.device)
     eye = torch.eye(10, dtype=f32, device=params.device)
+    jac = _jt_analytic if analytic_jac else residual_jacobian_jvp
     for _ in range(lm_iters):
-        a6, coff, ga, gc = geometry_jacobian(params, delta, min_w, max_w)
-        peak, r, d, basis6, ebk = _residual_from_geometry(
-            params, a6, coff, rel, px, mk)
-        # Cd = -2 M Gc with M the symmetric quadform matrix
-        a11, a22, a33, a12, a13, a23 = a6.unbind(dim=1)
-        mm = torch.stack([torch.stack([a11, 0.5 * a12, 0.5 * a13], -1),
-                          torch.stack([0.5 * a12, a22, 0.5 * a23], -1),
-                          torch.stack([0.5 * a13, 0.5 * a23, a33], -1)],
-                         dim=1)                                # (N, 3, 3)
-        cd = -2.0 * torch.bmm(mm, gc)                          # (N, 3, 10)
-        dq = torch.bmm(ga.transpose(1, 2), basis6) \
-            + torch.bmm(cd.transpose(1, 2), d.transpose(1, 2))  # (N, 10, P)
-        jt = (-0.5 * peak * mk)[:, None, :] * dq
-        in_range = ((params[:, 0] >= -70.0)
-                    & (params[:, 0] <= 70.0)).to(f32)
-        jt[:, 0] = (ebk * in_range[:, None]) * mk
-        jt[:, 1] = peak * mk
-        g = torch.einsum("nip,np->ni", jt, r)
-        h = torch.einsum("nip,njp->nij", jt, jt)
+        jt, r = jac(params, rel, px, mk, delta, min_w, max_w)
+        with full_f32_matmul():   # the reference: HIGHEST
+            g = torch.einsum("nip,np->ni", jt, r)
+            h = torch.einsum("nip,njp->nij", jt, jt)
         diag = torch.diagonal(h, dim1=1, dim2=2)
         a = h + (lam[:, None] * diag)[:, :, None] * eye + 1e-8 * eye
         new_params = params + cg_solve_spd(a, -g, cg_iters)

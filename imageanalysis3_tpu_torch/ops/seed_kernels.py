@@ -233,28 +233,52 @@ def fused_seed_classify_pyramid_cuda(im: torch.Tensor, bgs: torch.Tensor,
         raise ValueError(f"seed_pyramid: fg radius {r} (max "
                          f"{MAX_FG_RADIUS}) / n_lvl {n_lvl} (max "
                          f"{MAX_LEVELS}) out of range")
-    taps = torch.as_tensor(np.asarray(k_fg, np.float32), device=im.device)
+    taps = np.ascontiguousarray(k_fg, np.float32)
     qdiff = torch.empty_like(im)
     counts = torch.zeros(n_lvl, dtype=torch.int32, device=im.device)
     _launch("seed_pyramid",
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
             + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-            im.data_ptr(), bgs.data_ptr(), taps.data_ptr(), qdiff.data_ptr(),
+            im.data_ptr(), bgs.data_ptr(), taps.ctypes.data, qdiff.data_ptr(),
             counts.data_ptr(), z, x, y, r, float(th), int(n_lvl),
             int(min_edge_distance), _stream(im))
     return qdiff, counts
 
 
-def pyramid_supported(shape, gfilt_size: float, background_gfilt_size: float,
-                      filt_size: int, min_edge_distance: int) -> bool:
-    """Whether the pyramid classifier takes this config (the JAX package's
-    semantic conditions; the TPU-only tiling gates are not copied)."""
-    if not (gfilt_size and background_gfilt_size):
-        return False
+def pyramid_occupancy_cuda(r: int) -> Tuple[int, int, int]:
+    """(resident blocks per SM, threads per block, dynamic shared memory
+    bytes per block) of the ``csrc/seed_pyramid.cu`` kernel that fg radius
+    `r` launches, as the card grants them."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    fn = _build.load("seed_pyramid").seed_pyramid_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    rc = fn(int(r), *(ctypes.addressof(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"seed_pyramid occupancy query failed ({rc})")
+    return tuple(v.value for v in out)
+
+
+def _pyramid_kernel_takes(shape, gfilt_size: float,
+                          min_edge_distance: int) -> bool:
+    """What the pyramid classifier itself needs: a (Z >= 2, X, Y) stack with
+    X, Y multiples of 4, edge margin >= 1, fg radius <= 12."""
     r_fg = int(4.0 * float(gfilt_size) + 0.5)
-    return (filt_size == 3 and min_edge_distance >= 1 and shape[0] >= 2
+    return (len(shape) == 3 and shape[0] >= 2 and min_edge_distance >= 1
             and r_fg <= MAX_FG_RADIUS
             and shape[1] % 4 == 0 and shape[2] % 4 == 0)
+
+
+def pyramid_supported(shape, gfilt_size: float, background_gfilt_size: float,
+                      filt_size: int, min_edge_distance: int,
+                      slab_x: int) -> bool:
+    """Whether ``get_seeds`` takes the pyramid classifier for this config:
+    the JAX package's semantic conditions, which include every condition of
+    the exact fused classifier (:func:`fused_supported`: both radii <= 36,
+    ``x <= 2 * slab_x``); the TPU-only tiling gates are not copied."""
+    return (fused_supported(shape, gfilt_size, background_gfilt_size,
+                            filt_size, min_edge_distance, slab_x)
+            and _pyramid_kernel_takes(shape, gfilt_size, min_edge_distance))
 
 
 def fused_seed_classify_pyramid(im: torch.Tensor, sigma_fg: float,
@@ -264,8 +288,8 @@ def fused_seed_classify_pyramid(im: torch.Tensor, sigma_fg: float,
     """Pyramid-background classifier -> (qdiff, counts): the CUDA kernel
     for a CUDA tensor, the plain version for a CPU tensor."""
     imf = im.to(torch.float32).contiguous()
-    if not pyramid_supported(imf.shape, sigma_fg, sigma_bg, 3,
-                             min_edge_distance):
+    if not (sigma_fg and sigma_bg
+            and _pyramid_kernel_takes(imf.shape, sigma_fg, min_edge_distance)):
         raise ValueError("fused_seed_classify_pyramid: unsupported "
                          f"shape/config {tuple(imf.shape)}, sigma_fg "
                          f"{sigma_fg}, min_edge_distance "

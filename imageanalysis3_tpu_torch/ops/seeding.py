@@ -140,9 +140,14 @@ def get_seeds(im: torch.Tensor,
               min_dynamic_seeds: int = 1,
               remove_hot_pixel: bool = True,
               hot_pixel_th: int = 3,
+              cand_capacity: int = 16384,
               slab_x: int = 1024,
               pyramid_bg: bool = False) -> Seeds:
-    """Seed local maxima of `im` (Z, X, Y) -> fixed-capacity table."""
+    """Seed local maxima of `im` (Z, X, Y) -> fixed-capacity table.
+
+    ``cand_capacity`` is accepted for the JAX package's signature and
+    unused, as there: the hierarchical top-k extraction has no candidate
+    table."""
     imf = im.to(torch.float32)
     shape = tuple(imf.shape)
     dev = imf.device
@@ -162,7 +167,7 @@ def get_seeds(im: torch.Tensor,
                 <= DUAL_BLUR_MAX_RADIUS)
     if pyramid_bg and pyramid_supported(shape, gfilt_size,
                                         background_gfilt_size, filt_size,
-                                        min_edge_distance):
+                                        min_edge_distance, slab_x):
         qdiff, counts = fused_seed_classify_pyramid(
             imf, gfilt_size, background_gfilt_size, th_f, n_lvl,
             min_edge_distance=min_edge_distance)

@@ -49,9 +49,11 @@ def polynomial_basis(coords: torch.Tensor, max_order: int) -> torch.Tensor:
 def evaluate_poly_shifts(coords: torch.Tensor, constants: torch.Tensor,
                          max_order: int,
                          ref_center: torch.Tensor) -> torch.Tensor:
-    """Per-dimension polynomial shift at `coords` (N, 3) -> (N, 3)."""
+    """Per-dimension polynomial shift at `coords` (N, 3) -> (N, 3), the
+    product in full f32 (the reference: HIGHEST)."""
     X = polynomial_basis(coords - ref_center[None], max_order)
-    return torch.einsum("nm,dm->nd", X, constants)
+    with full_f32_matmul():
+        return torch.einsum("nm,dm->nd", X, constants)
 
 
 def warp_spot_coords(coords: torch.Tensor, constants: torch.Tensor,

@@ -186,7 +186,8 @@ class FovPipeline:
             background_gfilt_size=s.background_gfilt_size,
             filt_size=s.filt_size, min_edge_distance=s.min_edge_distance,
             use_dynamic_th=s.use_dynamic_th, dynamic_niters=s.dynamic_niters,
-            min_dynamic_seeds=s.min_dynamic_seeds, pyramid_bg=s.pyramid_bg)
+            min_dynamic_seeds=s.min_dynamic_seeds,
+            cand_capacity=s.cand_capacity, pyramid_bg=s.pyramid_bg)
         res = iter_fit_seed_points(
             im, seeds.coords.to(torch.float32), seeds.valid,
             radius=f.radius, min_w=f.min_w, max_w=f.max_w, init_w=f.init_w,

@@ -159,22 +159,91 @@ def test_deinterleave_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("api", ["legacy", "fp32_precision"])
-def test_band_matmuls_run_full_f32_and_restore_the_setting(monkeypatch,
-                                                           api):
-    """With the caller's TF32 on (through either of PyTorch's two APIs),
-    both band matmuls (gaussian_filter's and the seeding z pass) run with
-    it off, and the caller's setting is back after each call."""
+def _band_calls():
+    """gaussian_filter's band matmul (25 taps: one per axis) and the seeding
+    z pass: 4 matmuls."""
     from imageanalysis3_tpu_torch.ops import seed_kernels as sk
+    tf.gaussian_filter(torch.from_numpy(_stack()), 3.0)
+    sk.z_pass_pair(torch.from_numpy(_stack()), tf.gaussian_kernel1d(0.75),
+                   tf.gaussian_kernel1d(7.5))
 
+
+def _bleed_call():
+    rng = np.random.default_rng(1)
+    tc.bleedthrough_unmix(
+        torch.from_numpy(rng.uniform(0, 1e3, (2, 3, 4, 5)).astype(np.float32)),
+        torch.from_numpy(rng.uniform(0, 1, (2, 2, 4, 5)).astype(np.float32)))
+
+
+def _dft_call():
+    from imageanalysis3_tpu_torch.ops import drift
+    rng = np.random.default_rng(2)
+    spec = rng.normal(size=(2, 6, 8, 5)) + 1j * rng.normal(size=(2, 6, 8, 5))
+    drift._upsampled_argmax(torch.from_numpy(spec.astype(np.complex64)), 8,
+                            torch.zeros((2, 3)), 10.0, 15)
+
+
+def _poly_call():
+    from imageanalysis3_tpu_torch.ops import warp
+    rng = np.random.default_rng(3)
+    warp.evaluate_poly_shifts(
+        torch.from_numpy(rng.uniform(0, 50, (6, 3)).astype(np.float32)),
+        torch.from_numpy(rng.normal(size=(3, 10)).astype(np.float32)), 2,
+        torch.full((3,), 25.0))
+
+
+def _lm_call():
+    from imageanalysis3_tpu_torch.ops import lm_kernel
+    rng = np.random.default_rng(4)
+    n, p = 3, 40
+    lm_kernel.lm_fit_plain(
+        torch.from_numpy(rng.uniform(100, 900, (n, p)).astype(np.float32)),
+        torch.from_numpy(rng.uniform(0, 10, (n, p, 3)).astype(np.float32)),
+        torch.ones((n, p), dtype=torch.bool), torch.full((n, 3), 5.0),
+        torch.full((n,), 2.0),
+        torch.from_numpy((rng.normal(0, 0.1, (n, 10)) + [5, 6, 0, 0, 0, 0.3,
+                          0.3, 0.3, 0, 0]).astype(np.float32)),
+        0.5, 4.0, lm_iters=1)
+
+
+#: each call with the products the reference runs at Precision.HIGHEST
+#: (matmul, or an einsum by its equation) and how many of them it makes
+_HIGHEST_CALLS = {
+    "band": (_band_calls, {"matmul": 4}),
+    "bleedthrough_unmix": (_bleed_call, {"ijxy,jzxy->izxy": 1}),
+    "upsampled_dft": (_dft_call, {"kaz,kzxy->kaxy": 1, "kbx,kaxy->kaby": 1,
+                                  "kcy,kaby->kabc": 1}),
+    "evaluate_poly_shifts": (_poly_call, {"nm,dm->nd": 1}),
+    "lm_fit_plain": (_lm_call, {"nip,np->ni": 1, "nip,njp->nij": 1}),
+}
+
+
+@pytest.mark.parametrize("api,call", [
+    pytest.param(api, call, id=api if call == "band" else f"{api}-{call}")
+    for call in _HIGHEST_CALLS for api in ("legacy", "fp32_precision")])
+def test_band_matmuls_run_full_f32_and_restore_the_setting(monkeypatch,
+                                                           api, call):
+    """With the caller's TF32 on (through either of PyTorch's two APIs),
+    every product the reference runs at HIGHEST (the band matmuls of
+    gaussian_filter and the seeding z pass, bleedthrough unmixing, the
+    upsampled DFT, the chromatic polynomial, the LM's g and H) runs with it
+    off, and the caller's setting is back after each call."""
     flags = torch.backends.cuda.matmul
+    fn, want = _HIGHEST_CALLS[call]
     seen = []
-    real = torch.matmul
+    real_matmul, real_einsum = torch.matmul, torch.einsum
 
-    def spy(*args, **kw):
-        seen.append(flags.fp32_precision if api == "fp32_precision"
-                    else flags.allow_tf32)
-        return real(*args, **kw)
+    def state():
+        return (flags.fp32_precision if api == "fp32_precision"
+                else flags.allow_tf32)
+
+    def spy_matmul(*args, **kw):
+        seen.append(("matmul", state()))
+        return real_matmul(*args, **kw)
+
+    def spy_einsum(eq, *args, **kw):
+        seen.append((eq, state()))
+        return real_einsum(eq, *args, **kw)
 
     before = torch.get_float32_matmul_precision()
     try:
@@ -182,11 +251,9 @@ def test_band_matmuls_run_full_f32_and_restore_the_setting(monkeypatch,
             torch.set_float32_matmul_precision("high")
         else:
             flags.fp32_precision = "tf32"
-        monkeypatch.setattr(torch, "matmul", spy)
-        # 25 taps: one band matmul per axis
-        tf.gaussian_filter(torch.from_numpy(_stack()), 3.0)
-        sk.z_pass_pair(torch.from_numpy(_stack()),
-                       tf.gaussian_kernel1d(0.75), tf.gaussian_kernel1d(7.5))
+        monkeypatch.setattr(torch, "matmul", spy_matmul)
+        monkeypatch.setattr(torch, "einsum", spy_einsum)
+        fn()
         after = (flags.fp32_precision if api == "fp32_precision"
                  else torch.get_float32_matmul_precision())
     finally:
@@ -194,7 +261,10 @@ def test_band_matmuls_run_full_f32_and_restore_the_setting(monkeypatch,
         if api == "fp32_precision":
             flags.fp32_precision = "none"
         torch.set_float32_matmul_precision(before)
-    assert seen == (["ieee"] * 4 if api == "fp32_precision" else [False] * 4)
+    off = "ieee" if api == "fp32_precision" else False
+    got = [(k, v) for k, v in seen if k in want]
+    assert sorted(got) == sorted((k, off) for k, n in want.items()
+                                 for _ in range(n))
     assert after == ("tf32" if api == "fp32_precision" else "high")
 
 

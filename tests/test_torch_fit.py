@@ -198,3 +198,97 @@ def test_iter_fit_seed_points_matches_jax():
     assert int(r_t.n_contested) == int(r_j.n_contested)
     assert int(r_t.n_rounds) == int(r_j.n_rounds)
     _assert_fits_close(r_t.spots.numpy(), np.asarray(r_j.spots), vj)
+
+
+def test_forward_mode_jacobian_matches_linearize():
+    """The port's analytic_jac=False J^T (forward-mode, one tangent per
+    parameter) against jax.linearize of the reference's residual, with the
+    tolerances of tests/test_fit.py's analytic-vs-linearize test."""
+    rng = np.random.default_rng(3)
+    n, p = 4, 257
+    coords = rng.integers(0, 20, (n, p, 3)).astype(np.float32)
+    center = np.full((n, 3), 10.0, np.float32)
+    delta = np.full(n, 2.5, np.float32)
+    pixels = rng.uniform(100, 3000, (n, p)).astype(np.float32)
+    maskf = (rng.uniform(0, 1, (n, p)) > 0.2).astype(np.float32)
+    params = (rng.normal(0, 1.0, (n, 10)) + np.array(
+        [5.5, 7.0, 0, 0, 0, 0.3, 0.3, 0.3, 0, 0])).astype(np.float32)
+    jt_t, r_t = tl.residual_jacobian_jvp(
+        torch.from_numpy(params), torch.from_numpy(coords - center[:, None]),
+        torch.from_numpy(pixels), torch.from_numpy(maskf),
+        torch.from_numpy(delta), MIN_W, MAX_W)
+    for i in range(n):
+        def residual(prm):
+            f = jg.gaussian_model(prm, jnp.asarray(coords[i]),
+                                  jnp.asarray(center[i]), float(delta[i]),
+                                  MIN_W, MAX_W)
+            return (f - jnp.asarray(pixels[i])) * jnp.asarray(maskf[i])
+
+        r0, f_jvp = jax.linearize(residual, jnp.asarray(params[i]))
+        jt0 = np.asarray(jax.vmap(f_jvp)(jnp.eye(10)))
+        scale = float(np.abs(jt0).max()) + 1e-9
+        assert float(np.abs(np.asarray(r0) - r_t[i].numpy()).max()) < 1e-2
+        assert float(np.abs(jt0 - jt_t[i].numpy()).max()) / scale < 5e-3
+
+
+@pytest.fixture(scope="module")
+def small_fit_scene():
+    im, truth = _scene((16, 64, 64), 8, 2, 5)
+    seeds = truth["centers"].round().astype(np.float32)
+    return im, seeds, np.ones(len(seeds), bool)
+
+
+def test_iter_fit_forward_mode_path_matches_jax(small_fit_scene):
+    """analytic_jac=False: the port (plain LM, forward-mode J^T) against the
+    JAX package's linearize path within tests/test_pallas.py's fit
+    tolerances, and within 5e-3 px of the port's analytic path (the bound
+    tests/test_fit.py puts between the reference's two paths)."""
+    im, seeds, valid = small_fit_scene
+    kw = dict(lm_iters=8, n_max_iter=2)
+    r_j = jg.iter_fit_seed_points(jnp.asarray(im), jnp.asarray(seeds),
+                                  jnp.asarray(valid), analytic_jac=False,
+                                  lm_backend="xla", **kw)
+    args = (torch.from_numpy(im), torch.from_numpy(seeds),
+            torch.from_numpy(valid))
+    r_t = tg.iter_fit_seed_points(*args, analytic_jac=False, **kw)
+    vj = np.asarray(r_j.valid)
+    np.testing.assert_array_equal(r_t.valid.numpy(), vj)
+    _assert_fits_close(r_t.spots.numpy(), np.asarray(r_j.spots), vj)
+    r_a = tg.iter_fit_seed_points(*args, **kw)
+    v = r_a.valid.numpy()
+    assert np.array_equal(v, r_t.valid.numpy())
+    assert np.max(np.linalg.norm(r_a.spots.numpy()[v, 1:4]
+                                 - r_t.spots.numpy()[v, 1:4], axis=1)) < 5e-3
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas_interpret"])
+def test_iter_fit_lm_backend_names_match_jax(small_fit_scene, backend):
+    """Each reference backend name the CPU can run: the port with the same
+    name against the JAX package with it, within tests/test_pallas.py's
+    fit tolerances; on a CPU tensor each is the plain LM, so all three
+    equal the port's default."""
+    im, seeds, valid = small_fit_scene
+    kw = dict(lm_iters=6, n_max_iter=1)
+    r_j = jg.iter_fit_seed_points(jnp.asarray(im), jnp.asarray(seeds),
+                                  jnp.asarray(valid), lm_backend=backend,
+                                  **kw)
+    args = (torch.from_numpy(im), torch.from_numpy(seeds),
+            torch.from_numpy(valid))
+    r_t = tg.iter_fit_seed_points(*args, lm_backend=backend, **kw)
+    vj = np.asarray(r_j.valid)
+    np.testing.assert_array_equal(r_t.valid.numpy(), vj)
+    _assert_fits_close(r_t.spots.numpy(), np.asarray(r_j.spots), vj)
+    assert torch.equal(r_t.spots,
+                       tg.iter_fit_seed_points(*args, **kw).spots)
+
+
+@pytest.mark.parametrize("backend,match", [("pallas", "CUDA"),
+                                           ("mosaic", "lm_backend")])
+def test_iter_fit_refuses_what_the_cpu_cannot_run(backend, match):
+    """"pallas" runs the kernel, which a CPU tensor cannot; an unknown name
+    is refused."""
+    im = torch.zeros((4, 16, 16))
+    seeds = torch.full((2, 3), 8.0)
+    with pytest.raises(ValueError, match=match):
+        tg.iter_fit_seed_points(im, seeds, torch.ones(2, dtype=torch.bool),
+                                lm_backend=backend)

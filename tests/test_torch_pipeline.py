@@ -197,3 +197,27 @@ def test_pipeline_defaults_to_cuda_and_raises_without_it(monkeypatch):
         FovPipeline(cfg, 1, 0, (0,), image_shape=SHAPE, device="cuda")
     assert FovPipeline(cfg, 1, 0, (0,), image_shape=SHAPE,
                        device="cpu").device.type == "cpu"
+
+
+def test_fit_channel_passes_the_seed_config_as_the_reference(monkeypatch):
+    """FovPipeline hands get_seeds SeedConfig.cand_capacity, as the JAX
+    package's FovPipeline does."""
+    from imageanalysis3_tpu_torch.config import SeedConfig as PortSeed
+    from imageanalysis3_tpu_torch.pipeline import fov
+
+    class Stop(Exception):
+        pass
+
+    seen = {}
+
+    def spy(im, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(fov, "get_seeds", spy)
+    cfg = PortConfig(image_size=SHAPE, seed=PortSeed(cand_capacity=777))
+    pipe = FovPipeline(cfg, 1, 0, (0,), image_shape=SHAPE, device="cpu")
+    with pytest.raises(Stop):
+        pipe.fit_channel(torch.zeros(SHAPE), 300.0)
+    assert seen["cand_capacity"] == 777
+    assert seen["pyramid_bg"] == cfg.seed.pyramid_bg

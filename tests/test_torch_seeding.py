@@ -137,3 +137,90 @@ def test_get_seeds_pyramid_matches_jax_planted_set():
     s_t = ts.get_seeds(torch.from_numpy(im), max_num_seeds=64,
                        th_seed=300.0, pyramid_bg=True)
     _compare_seed_tables(s_t, s_j, heights=False)
+
+
+class _Picked(Exception):
+    """Raised by a spy in place of the classifier get_seeds picked."""
+
+
+_CLASSIFIERS = ("fused_seed_classify_pyramid", "fused_seed_classify",
+                "dual_gaussian_blur")
+
+
+def _spy(name):
+    def picked(*args, **kwargs):
+        raise _Picked(name)
+    return picked
+
+
+def _port_path(monkeypatch, im, **kw):
+    """The classifier the port's get_seeds calls for this config (None: the
+    plain or x-slab path)."""
+    for name in _CLASSIFIERS:
+        monkeypatch.setattr(ts, name, _spy(name))
+    try:
+        ts.get_seeds(torch.from_numpy(im), max_num_seeds=16, **kw)
+    except _Picked as picked:
+        return picked.args[0]
+    return None
+
+
+def _reference_path(monkeypatch, im, **kw):
+    """The classifier the JAX package's get_seeds calls for this config on a
+    TPU: its gates evaluated with the backend reported as "tpu" (the shape
+    meets the TPU tiling gates, so only the semantic conditions decide),
+    each Pallas entry point replaced by a spy."""
+    import jax
+    from imageanalysis3_tpu.ops import pallas_kernels
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    for name in _CLASSIFIERS:
+        monkeypatch.setattr(pallas_kernels, name, _spy(name))
+    try:
+        js.get_seeds.__wrapped__(jnp.asarray(im), max_num_seeds=16, **kw)
+    except _Picked as picked:
+        return picked.args[0]
+    return None
+
+
+@pytest.mark.parametrize("kw,path", [
+    (dict(pyramid_bg=True), "fused_seed_classify_pyramid"),
+    (dict(pyramid_bg=True, background_gfilt_size=8.5),
+     "fused_seed_classify_pyramid"),
+    # bg radius 40 > 36: no fused path, so no pyramid either
+    (dict(pyramid_bg=True, background_gfilt_size=10.0), None),
+    # x = 32 > 2 * slab_x: neither fused path
+    (dict(pyramid_bg=True, slab_x=8), None),
+    (dict(pyramid_bg=True, gfilt_size=3.5), "fused_seed_classify"),
+    (dict(pyramid_bg=True, filt_size=5), "dual_gaussian_blur"),
+    (dict(pyramid_bg=False), "fused_seed_classify"),
+])
+def test_get_seeds_gate_matches_reference(monkeypatch, kw, path):
+    """The port picks the classifier the reference's semantic gate picks
+    (its use_pyramid inherits every condition of use_fused)."""
+    im = np.random.default_rng(0).uniform(400, 600, (4, 32, 128)).astype(
+        np.float32)
+    assert _reference_path(monkeypatch, im, **kw) == path
+    assert _port_path(monkeypatch, im, **kw) == path
+
+
+@pytest.mark.parametrize("kw", [dict(background_gfilt_size=10.0),
+                                dict(slab_x=32)])
+def test_get_seeds_outside_the_pyramid_gate_matches_jax(kw):
+    """pyramid_bg=True outside the pyramid's gate (bg sigma 10; x = 128 >
+    2 * slab_x) takes the exact path: JAX's seed set and heights."""
+    im, _ = _planted((12, 128, 128), 20, 3, 4)
+    args = dict(max_num_seeds=64, th_seed=300.0, **kw)
+    s_j = js.get_seeds(jnp.asarray(im), **args)
+    s_t = ts.get_seeds(torch.from_numpy(im), pyramid_bg=True, **args)
+    _compare_seed_tables(s_t, s_j)
+    assert float(s_t.threshold) == float(s_j.threshold)
+
+
+def test_get_seeds_accepts_and_ignores_cand_capacity():
+    """The reference's cand_capacity is accepted and changes nothing."""
+    im, _ = _planted((6, 64, 128), 6, 2, 3)
+    a = ts.get_seeds(torch.from_numpy(im), max_num_seeds=16, th_seed=300.0)
+    b = ts.get_seeds(torch.from_numpy(im), max_num_seeds=16, th_seed=300.0,
+                     cand_capacity=64)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
