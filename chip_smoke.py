@@ -21,9 +21,12 @@ Phases, each of which raises (exit code != 0) on a failed check:
    the level stencil; the three exact kernels also through their
    bit-identical run-time-radius code on a small stack; the LM fit on round 0's 2048
    spots x 512 pixels x 8 iterations and on a Jacobi refit round's 512
-   warm-started spots; the cube gather at the 2048 seeds with r = 5 and
-   r = 4, on a thin stack and with origins far outside the stack, where
-   it must equal its plain version exactly), with CUDA-event timings of
+   warm-started spots, then at every launch shape the paths make (slice 1,
+   e2e and calibration rounds 0 and refits, P = 254 and 922; seeds at the
+   planted centres), with its registers and resident warps; the cube
+   gather at the 2048 seeds with r = 5 and r = 4, on a thin stack and with
+   origins far outside the stack, where it must equal its plain version
+   exactly), with CUDA-event timings of
    kernel and plain version over fresh inputs (and of the gather's one
    advanced-indexing PyTorch call);
 3. slice 1's main path: ``FovPipeline.process_round`` at bench.py's
@@ -58,8 +61,9 @@ The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
 record goes to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds one
 slice-1 round under torch.profiler (device time by kernel, device busy
-share).  ``--only seed_classify`` and ``--only seed_pyramid`` build that
-kernel alone and run its checks and timing, nothing else.
+share).  ``--only seed_classify``, ``--only seed_pyramid`` and ``--only
+lm_fit`` build that kernel alone and run its checks and timing, nothing
+else.
 """
 
 from __future__ import annotations
@@ -774,6 +778,260 @@ def _gather_checks(torch, stacks, seeds, peaks, smi: str) -> dict:
     return out
 
 
+# ---- the LM fit at every launch shape the paths make ------------------------
+def _lm_round0(torch, im, s, valid, radius: int, lm_iters: int) -> dict:
+    """Round-0 inputs of ``iter_fit_seed_points`` for seeds `s` (N, 3)
+    f32: ownership-masked blocks, the contested/isolated centre boxes and
+    the moment-based start."""
+    from imageanalysis3_tpu_torch.config import FitConfig
+    from imageanalysis3_tpu_torch.ops import gaussian_fit as gf
+
+    f = FitConfig()
+    pixels, coords, base = gf.gather_blocks(im, s, radius)
+    base = base & valid[:, None]
+    nidx, nmask = gf.neighbor_lists(s, valid, max_neighbors=f.max_neighbors,
+                                    radius=radius)
+    own = gf.ownership_mask(coords, s, s[nidx], nmask)
+    contested = nmask.any(dim=1) & valid
+    delta = torch.where(contested, f.min_delta_center,
+                        f.max_delta_center).to(torch.float32)
+    mask = (base & own).contiguous()
+    p0 = gf.init_params(pixels, mask, f.min_w, f.max_w, f.init_w,
+                        coords=coords, center_est=s, delta=delta)
+    lm_in = (pixels.contiguous(), coords.contiguous(), mask, s.contiguous(),
+             delta.contiguous(), p0.contiguous(), f.min_w, f.max_w, lm_iters)
+    return {"lm_in": lm_in, "svalid": valid, "base": base, "nidx": nidx,
+            "nmask": nmask, "contested": contested}
+
+
+def _lm_refit(torch, r0: dict, prm, eps):
+    """One Jacobi refit round's inputs, built from round-0 results as
+    iter_fit_seed_points builds them: warm-started params rebased into the
+    wide box, the contested prefix of capacity max(128, N/4 rounded up to
+    128), pixels with the neighbours' reconstructions subtracted, and
+    max(8, lm_iters // 3) iterations."""
+    from imageanalysis3_tpu_torch.config import FitConfig
+    from imageanalysis3_tpu_torch.ops import gaussian_fit as gf
+
+    f = FitConfig()
+    pixels, coords, _, s, delta0 = r0["lm_in"][:5]
+    min_w, max_w, lm_iters = r0["lm_in"][6:9]
+    nat = gf.to_natural(prm, s, delta0, min_w, max_w, eps)
+    prm = gf.rebase_center_params(prm, s, delta0, f.max_delta_center)
+    n = s.shape[0]
+    cap = min(n, max(128, -(-n // 4 // 128) * 128))
+    sel = torch.argsort((~r0["contested"]).to(torch.int8), stable=True)[:cap]
+    sub = gf._recon_at(coords[sel], nat, r0["nidx"][sel], r0["nmask"][sel])
+    delta = torch.full((cap,), f.max_delta_center, dtype=torch.float32,
+                       device=s.device)
+    return ((pixels[sel] - sub).contiguous(), coords[sel].contiguous(),
+            r0["base"][sel].contiguous(), s[sel].contiguous(), delta,
+            prm[sel].contiguous(), min_w, max_w, max(8, lm_iters // 3)), sel
+
+
+def _check_lm(torch, label, lm_in, svalid, base, shape):
+    """lm_fit kernel against its plain version on one batch: finite
+    outputs; then, on every valid spot whose fit the summation order does
+    not decide, identical valid masks, centres within 1e-3 px, heights
+    within rtol 1e-2, widths within 1e-3.  A spot's fit is decided by the
+    order when the plain version itself, run on the spot's pixels in two
+    other orders (reversed, rotated by half), moves beyond those
+    tolerances or changes its validity: such spots (an LM step whose
+    accept or reject turns on rounding) are named and counted, and more
+    than max(2, 1 %) of the valid spots fails the check.  Returns
+    (max |dcentre| over the held spots, n valid, the plain version's
+    (params, eps), the order-decided spots)."""
+    from imageanalysis3_tpu_torch.ops import gaussian_fit as gf
+    from imageanalysis3_tpu_torch.ops import lm_kernel
+
+    pk, ek = lm_kernel.lm_fit_cuda(*lm_in)
+    pp, ep = lm_kernel.lm_fit_plain(*lm_in)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(pk).all() and torch.isfinite(ek).all()):
+        raise AssertionError(f"lm_fit {label}: non-finite params or eps "
+                             "from the kernel (padded/invalid spots "
+                             "included)")
+    size = torch.tensor(shape, dtype=torch.float32, device=pk.device)
+
+    def natural(prm, eps):
+        nat = gf.to_natural(prm, lm_in[3], lm_in[4], lm_in[6], lm_in[7], eps)
+        ok = (svalid & torch.isfinite(nat).all(dim=1)
+              & ((nat[:, 1:4] > 0) & (nat[:, 1:4] < size)).all(dim=1)
+              & (base.sum(dim=1) > 10))
+        return nat, ok
+
+    def apart(a, va, b, vb):
+        """Spots on which two fits differ beyond the tolerances."""
+        return ((va != vb) | ((va & vb) & (
+            ((a[:, 1:4] - b[:, 1:4]).abs() > 1e-3).any(dim=1)
+            | ((a[:, 0] - b[:, 0]).abs() > 1e-2 * b[:, 0].abs())
+            | ((a[:, 5:8] - b[:, 5:8]).abs() > 1e-3).any(dim=1))))
+
+    nk, vk = natural(pk, ek)
+    npl, vp = natural(pp, ep)
+    p = lm_in[0].shape[1]
+    decided = torch.zeros_like(vp)
+    for perm in (torch.arange(p - 1, -1, -1), torch.roll(torch.arange(p),
+                                                         p // 2)):
+        perm = perm.to(pk.device)
+        po, eo = lm_kernel.lm_fit_plain(lm_in[0][:, perm], lm_in[1][:, perm],
+                                        lm_in[2][:, perm], *lm_in[3:])
+        decided |= apart(*natural(po, eo), npl, vp)
+    held = ~decided
+    names = torch.nonzero(decided & (vp | vk)).flatten().tolist()
+    if len(names) > max(2, int(vp.sum()) // 100):
+        raise AssertionError(f"lm_fit {label}: {len(names)} spots are "
+                             f"decided by the summation order: {names}")
+    if not torch.equal(vk[held], vp[held]):
+        raise AssertionError(f"lm_fit {label}: valid masks differ "
+                             f"({int(vk[held].sum())} vs "
+                             f"{int(vp[held].sum())})")
+    both = vp & held
+    ck_, cp_ = nk[both][:, 1:4], npl[both][:, 1:4]
+    err = float((ck_ - cp_).abs().max()) if int(both.sum()) else 0.0
+    if not torch.allclose(ck_, cp_, rtol=0.0, atol=1e-3):
+        bad = torch.nonzero(both).flatten()[
+            ((ck_ - cp_).abs() > 1e-3).any(dim=1)].tolist()
+        raise AssertionError(f"lm_fit {label}: centres differ by {err} px "
+                             f"(spots {bad})")
+    if not torch.allclose(nk[both][:, 0], npl[both][:, 0], rtol=1e-2,
+                          atol=0.0):
+        raise AssertionError(f"lm_fit {label}: heights differ beyond "
+                             "rtol 1e-2")
+    if not torch.allclose(nk[both][:, 5:8], npl[both][:, 5:8], rtol=0.0,
+                          atol=1e-3):
+        raise AssertionError(f"lm_fit {label}: widths differ beyond "
+                             "atol 1e-3")
+    return err, int(vp.sum()), (pp, ep), names
+
+
+def _lm_bound(n: int, p: int, iters: int, peaks):
+    """The least time of the reference algorithm's work for n spots of p
+    pixels and `iters` iterations: bytes read once (pixels, coordinates,
+    mask, centres, delta, params) and written once (params, eps); per pixel
+    240 flop for model, residual, 10 J^T rows, g and the 55 H sums, 31 for
+    the trial cost, 31 each for the first cost and eps; per spot and
+    iteration 12 CG steps of ~260 flop."""
+    nbytes = n * p * (4 + 12 + 1) + n * (12 + 4 + 40 + 44)
+    ops = n * (p * (iters * 271 + 62) + iters * 12 * 260)
+    return _bound(nbytes, ops, peaks)
+
+
+def _planted_seeds(torch, centers, capacity: int, dev):
+    """Seeds at the planted centres (rounded, the first `capacity`), the
+    rest of the capacity invalid at -1, as get_seeds pads its table."""
+    c = np.round(np.asarray(centers, np.float64))[:capacity]
+    s = np.full((capacity, 3), -1.0, np.float32)
+    s[:len(c)] = c
+    valid = np.arange(capacity) < len(c)
+    return (torch.as_tensor(s, device=dev),
+            torch.as_tensor(valid, device=dev))
+
+
+def _lm_fit_shapes(torch, corrected, truth_centers, peaks, smi: str) -> dict:
+    """lm_fit against its plain version and timed at every launch shape the
+    paths make, each over three fresh inputs with seeds at the planted
+    centres (so no seeding kernel is needed): slice 1's round 0 (2048 seeds,
+    P = 512, 8 iterations) and its Jacobi refit (512 spots); the e2e path's
+    round 0 (4096 seeds, channel 0 of rounds 0-2) and refit (1024); the
+    calibration fit (512 bead seeds, 30 iterations; the two bead targets
+    and the reference image) and its refit (128 spots, 10 iterations); and
+    P = 254 (r = 4) and P = 922 (r = 6) on the bench scene.  Each shape:
+    the checks of _check_lm on every input, kernel and plain CUDA-event
+    medians, the bound."""
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.ops import lm_kernel
+
+    dev = corrected[0].device
+    bench = [(im, *_planted_seeds(torch, truth_centers, 2048, dev))
+             for im in corrected]
+    e2e = syn.make_e2e_scene()
+    e2e_in = []
+    for r in range(3):
+        b = r * e2e.n_data_ch
+        centers = np.vstack([e2e.bit_spots[b], e2e.distractors[(r, 0)]]) \
+            + e2e.drifts[r]
+        im = e2e.round_stack(r, dev)[0].to(torch.float32)
+        e2e_in.append((im, *_planted_seeds(torch, centers, 4096, dev)))
+    cal = syn.make_calibration_scene()
+    beads = cal.beads["centers"]
+    cal_in = []
+    for ci in (0, 2):
+        tar, ref = cal.bead_pair(ci, dev)
+        cal_in.append((tar.to(torch.float32),
+                       *_planted_seeds(torch, cal.shifted(ci, beads), 512,
+                                       dev)))
+    cal_in.append((ref.to(torch.float32),
+                   *_planted_seeds(torch, beads, 512, dev)))
+    del tar, ref
+    cases = [("slice1 round 0", bench, 5, 8, True),
+             ("e2e round 0", e2e_in, 5, 8, True),
+             ("calibration round 0", cal_in, 5, 30, True),
+             ("r4", bench, 4, 8, False), ("r6", bench, 6, 8, False)]
+    out = {}
+    for name, sets, radius, iters, refit in cases:
+        r0s = [_lm_round0(torch, im, s, v, radius, iters)
+               for im, s, v in sets]
+        shape = tuple(sets[0][0].shape)
+        batches = {name: ([r["lm_in"] for r in r0s],
+                          [(r["svalid"], r["base"]) for r in r0s])}
+        if refit:
+            ref_in, ref_ok = [], []
+            for r in r0s:
+                pp, ep = lm_kernel.lm_fit_plain(*r["lm_in"])
+                lm_in, sel = _lm_refit(torch, r, pp, ep)
+                ref_in.append(lm_in)
+                ref_ok.append((r["svalid"][sel], r["base"][sel]))
+            batches[name.replace("round 0", "refit")] = (ref_in, ref_ok)
+        for label, (inputs, oks) in batches.items():
+            err, n_valid, decided = 0.0, [], []
+            for lm_in, (sv, base) in zip(inputs, oks):
+                e, nv, _, dec = _check_lm(torch, label, lm_in, sv, base,
+                                          shape)
+                err, n_valid = max(err, e), n_valid + [nv]
+                decided.append(dec)
+            ms = _events_ms(torch, lm_kernel.lm_fit_cuda, inputs,
+                            queue_ahead=True)
+            plain_ms = _events_ms(torch, lm_kernel.lm_fit_plain, inputs,
+                                  queue_ahead=False)
+            n, p = inputs[0][0].shape
+            it = inputs[0][8]
+            bound = _lm_bound(n, p, it, peaks)
+            out[label] = {"spots": n, "px": p, "iters": it,
+                          "n_valid": n_valid, "order_decided": decided,
+                          "max_abs_err": err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound[0],
+                          "bound_by": bound[1]}
+            print(f"lm_fit {label}: PASS  {n} spots x {p} px x {it} iters, "
+                  f"valid {n_valid}, decided by the summation order "
+                  f"{decided}, max |dcentre| {err:.3g} px; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x)"
+                  f"  [{smi}]")
+    return out
+
+
+def _lm_fit_report(torch, smi: str) -> dict:
+    """lm_fit's ptxas registers and spills and the resident blocks (spots)
+    and warps per SM the card grants at each pixel count the paths use."""
+    from imageanalysis3_tpu_torch import _build
+    from imageanalysis3_tpu_torch.ops import lm_kernel
+
+    ptxas = _ptxas_report(_build.build_logs.get("lm_fit", ""))
+    occ = {}
+    for p in (120, 254, 512, 922):
+        blocks, threads, smem = lm_kernel.lm_occupancy_cuda(p)
+        occ[p] = {"blocks_per_sm": blocks, "threads": threads,
+                  "smem_bytes": smem, "warps_per_sm": blocks * threads // 32}
+    for line in ptxas:
+        print(f"  ptxas lm_fit: {line}")
+    print("  occupancy lm_fit: " + ", ".join(
+        f"P={p}: {o['threads']} threads, {o['smem_bytes']} B dynamic shared "
+        f"memory a spot, {o['blocks_per_sm']} spots = {o['warps_per_sm']} "
+        f"warps per SM" for p, o in occ.items()) + f"  [{smi}]")
+    return {"ptxas": ptxas, "occupancy": occ}
+
+
 def _calibration_phase(torch, smi: str) -> dict:
     """The bead-calibration path at full width (60x2048x2048 stacks rendered
     on the card from fixed seeds; rendering timed apart from each stage):
@@ -1055,7 +1313,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one round (device time by kernel)")
-    ap.add_argument("--only", choices=["seed_classify", "seed_pyramid"],
+    ap.add_argument("--only", choices=["seed_classify", "seed_pyramid",
+                                       "lm_fit"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line)")
@@ -1074,7 +1333,6 @@ def main(argv=None) -> int:
                                                  SeedConfig)
     from imageanalysis3_tpu_torch.ops import (kernel_launches,
                                               reset_kernel_launches)
-    from imageanalysis3_tpu_torch.ops import gaussian_fit as gf
     from imageanalysis3_tpu_torch.ops import lm_kernel, seed_kernels
     from imageanalysis3_tpu_torch.ops.filters import gaussian_kernel1d
     from imageanalysis3_tpu_torch.ops.seeding import get_seeds
@@ -1145,6 +1403,10 @@ def main(argv=None) -> int:
         _seed_pyramid_checks(torch, seed_kernels, corrected, k_fg, sig_bg,
                              peaks, smi)
         return 0
+    if args.only == "lm_fit":
+        _lm_fit_report(torch, smi)
+        _lm_fit_shapes(torch, corrected, truth["centers"], peaks, smi)
+        return 0
     pyr = _seed_pyramid_checks(torch, seed_kernels, corrected, k_fg, sig_bg,
                                peaks, smi)
     pyr_err, pyr_ms, pyr_plain_ms = pyr["max_abs_err"], pyr["ms"], pyr["plain_ms"]
@@ -1201,118 +1463,43 @@ def main(argv=None) -> int:
     def lm_inputs(im):
         seeds = get_seeds(im, max_num_seeds=cfg.seed.max_num_seeds,
                           th_seed=TH_SEED, pyramid_bg=True)
-        s = seeds.coords.to(torch.float32)
-        pixels, coords, base = gf.gather_blocks(im, s, fcfg.radius)
-        base = base & seeds.valid[:, None]
-        nidx, nmask = gf.neighbor_lists(s, seeds.valid,
-                                        max_neighbors=fcfg.max_neighbors,
-                                        radius=fcfg.radius)
-        own = gf.ownership_mask(coords, s, s[nidx], nmask)
-        contested = nmask.any(dim=1) & seeds.valid
-        delta = torch.where(contested, fcfg.min_delta_center,
-                            fcfg.max_delta_center).to(torch.float32)
-        mask = (base & own).contiguous()
-        p0 = gf.init_params(pixels, mask, fcfg.min_w, fcfg.max_w,
-                            fcfg.init_w, coords=coords, center_est=s,
-                            delta=delta)
-        lm_in = (pixels.contiguous(), coords.contiguous(), mask,
-                 s.contiguous(), delta.contiguous(), p0.contiguous(),
-                 fcfg.min_w, fcfg.max_w, fcfg.lm_iters)
-        return lm_in, seeds.valid, base, nidx, nmask, contested
-
-    def jacobi_inputs(lm_in, base, nidx, nmask, contested, prm, eps):
-        """One Jacobi refit round's inputs, built from round-0 results as
-        iter_fit_seed_points builds them: warm-started params rebased into
-        the wide box, the contested prefix of capacity 512, and pixels
-        with the neighbours' reconstructions subtracted."""
-        pixels, coords, _, s, delta0 = lm_in[:5]
-        nat = gf.to_natural(prm, s, delta0, fcfg.min_w, fcfg.max_w, eps)
-        prm = gf.rebase_center_params(prm, s, delta0, fcfg.max_delta_center)
-        n = s.shape[0]
-        cap = min(n, max(128, -(-n // 4 // 128) * 128))
-        sel = torch.argsort((~contested).to(torch.int8), stable=True)[:cap]
-        sub = gf._recon_at(coords[sel], nat, nidx[sel], nmask[sel])
-        delta = torch.full((cap,), fcfg.max_delta_center,
-                           dtype=torch.float32, device=dev)
-        return ((pixels[sel] - sub).contiguous(), coords[sel].contiguous(),
-                base[sel].contiguous(), s[sel].contiguous(), delta,
-                prm[sel].contiguous(), fcfg.min_w, fcfg.max_w,
-                max(8, fcfg.lm_iters // 3)), sel
-
-    def check_lm(label, lm_in, svalid, base):
-        """Kernel against plain version on one batch: identical valid
-        masks, centres within 1e-3 px, heights within rtol 1e-2, widths
-        within 1e-3.  Returns (max |dcentre|, n valid)."""
-        pk, ek = lm_kernel.lm_fit_cuda(*lm_in)
-        pp, ep = lm_kernel.lm_fit_plain(*lm_in)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(pk).all() and torch.isfinite(ek).all()):
-            raise AssertionError(f"lm_fit {label}: non-finite params or eps "
-                                 "from the kernel (padded/invalid spots "
-                                 "included)")
-
-        def natural(prm, eps):
-            nat = gf.to_natural(prm, lm_in[3], lm_in[4], fcfg.min_w,
-                                fcfg.max_w, eps)
-            size = torch.tensor(shape, dtype=torch.float32, device=dev)
-            ok = (svalid & torch.isfinite(nat).all(dim=1)
-                  & ((nat[:, 1:4] > 0) & (nat[:, 1:4] < size)).all(dim=1)
-                  & (base.sum(dim=1) > 10))
-            return nat, ok
-
-        nk, vk = natural(pk, ek)
-        npl, vp = natural(pp, ep)
-        if not torch.equal(vk, vp):
-            raise AssertionError(f"lm_fit {label}: valid masks differ "
-                                 f"({int(vk.sum())} vs {int(vp.sum())})")
-        ck_, cp_ = nk[vp][:, 1:4], npl[vp][:, 1:4]
-        err = float((ck_ - cp_).abs().max()) if int(vp.sum()) else 0.0
-        if not torch.allclose(ck_, cp_, rtol=0.0, atol=1e-3):
-            raise AssertionError(f"lm_fit {label}: centres differ by {err} "
-                                 "px")
-        if not torch.allclose(nk[vp][:, 0], npl[vp][:, 0], rtol=1e-2,
-                              atol=0.0):
-            raise AssertionError(f"lm_fit {label}: heights differ beyond "
-                                 "rtol 1e-2")
-        if not torch.allclose(nk[vp][:, 5:8], npl[vp][:, 5:8], rtol=0.0,
-                              atol=1e-3):
-            raise AssertionError(f"lm_fit {label}: widths differ beyond "
-                                 "atol 1e-3")
-        return err, int(vp.sum()), (pp, ep)
+        return _lm_round0(torch, im, seeds.coords.to(torch.float32),
+                          seeds.valid, fcfg.radius, fcfg.lm_iters)
 
     lm_sets = [lm_inputs(im) for im in corrected]
-    lm_in, svalid, base, nidx, nmask, contested = lm_sets[0]
+    lm_in, svalid, base = (lm_sets[0][k] for k in ("lm_in", "svalid", "base"))
     n_spots, n_px = lm_in[0].shape
-    lm_err, n_lm_valid, (pp, ep) = check_lm("round 0", lm_in, svalid, base)
+    lm_err, n_lm_valid, (pp, ep), lm_decided = _check_lm(
+        torch, "round 0", lm_in, svalid, base, shape)
     # the Jacobi refit starts from the plain round-0 result, so kernel and
     # plain version see the same inputs
-    jac_in, sel = jacobi_inputs(lm_in, base, nidx, nmask, contested, pp, ep)
+    jac_in, sel = _lm_refit(torch, lm_sets[0], pp, ep)
     jac_min_px = float(jac_in[0][jac_in[2]].min())
-    jac_err, n_jac_valid, _ = check_lm("Jacobi", jac_in, svalid[sel],
-                                       base[sel])
+    jac_err, n_jac_valid, _, jac_decided = _check_lm(
+        torch, "Jacobi", jac_in, svalid[sel], base[sel], shape)
     lm_err = max(lm_err, jac_err)
     lm_ms = _events_ms(torch, lm_kernel.lm_fit_cuda,
-                       [s[0] for s in lm_sets], queue_ahead=True)
+                       [st["lm_in"] for st in lm_sets], queue_ahead=True)
     lm_plain_ms = _events_ms(torch, lm_kernel.lm_fit_plain,
-                             [s[0] for s in lm_sets], queue_ahead=False)
-    it, cg = fcfg.lm_iters, 12
-    lm_bytes = n_spots * n_px * (4 + 12 + 1) + n_spots * (12 + 4 + 40 + 44)
-    # per pixel: 240 flop for model, residual, 10 J^T rows, g and the 55
-    # H sums; 31 for the trial cost; 31 each for the first cost and eps.
-    # per spot and iteration: 12 CG steps of ~260 flop
-    lm_ops = n_spots * (n_px * (it * 271 + 62) + it * cg * 260)
-    lm_bound = _bound(lm_bytes, lm_ops, peaks)
+                             [st["lm_in"] for st in lm_sets],
+                             queue_ahead=False)
+    it = fcfg.lm_iters
+    lm_bound = _lm_bound(n_spots, n_px, it, peaks)
     print(f"lm_fit: PASS  round 0: {n_spots} spots x {n_px} px x {it} "
           f"iters, valid {n_lm_valid}; Jacobi: {jac_in[0].shape[0]} spots x "
           f"{jac_in[8]} iters, valid {n_jac_valid}, least subtracted pixel "
-          f"{jac_min_px:.4g}; max |dcentre| {lm_err:.3g} px")
+          f"{jac_min_px:.4g}; max |dcentre| {lm_err:.3g} px; decided by "
+          f"the summation order {lm_decided} / {jac_decided}")
     print(f"kernels: seed_pyramid PASS {pyr_ms:.4f} ms (plain "
           f"{pyr_plain_ms:.4f} ms, bound {pyr_bound[0]:.4f} ms by "
           f"{pyr_bound[1]}); lm_fit PASS {lm_ms:.4f} ms (plain "
           f"{lm_plain_ms:.4f} ms, bound {lm_bound[0]:.4f} ms by "
           f"{lm_bound[1]})  [{smi}]")
+    lm_report = _lm_fit_report(torch, smi)
+    lm_shapes = _lm_fit_shapes(torch, corrected, truth["centers"], peaks, smi)
     gather = _gather_checks(torch, corrected,
-                            [st[0][3].to(torch.int32) for st in lm_sets],
+                            [st["lm_in"][3].to(torch.int32)
+                             for st in lm_sets],
                             peaks, smi)
     del pp, ep, lm_sets, lm_in, jac_in, corrected
 
@@ -1398,7 +1585,11 @@ def main(argv=None) -> int:
          "replaces": "imageanalysis3_tpu/ops/pallas_lm.py:225",
          "launches": total["lm_fit"], "max_abs_err": lm_err,
          "ms": lm_ms, "plain_ms": lm_plain_ms, "bound_ms": lm_bound[0],
-         "bound_by": lm_bound[1], "library_ms": None},
+         "bound_by": lm_bound[1], "library_ms": None,
+         "shapes": {k: {f: v[f] for f in ("spots", "px", "iters", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "max_abs_err")}
+                    for k, v in lm_shapes.items()}},
         {"name": "seed_classify", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/seed_classify.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:522",
@@ -1457,7 +1648,8 @@ def main(argv=None) -> int:
                        "seed_classify_flat_qualified": sc["flat_qualified"],
                        "seed_classify_byte_bound_ms": sc["byte_bound_ms"],
                        "dual_blur": blur, "dual_blur_generic_radius": blur_gen,
-                       "level_stencil": lvl, "gather_cubes": gather},
+                       "level_stencil": lvl, "gather_cubes": gather,
+                       "lm_fit_shapes": lm_shapes, "lm_fit_build": lm_report},
         seconds_per_stack=sec, round_seconds=times, stage_seconds=stages,
         launches_per_round=per_round, median_centroid_err_px=med_err,
         n_valid=n_valid, timed_round_accuracy=round_accuracy,

@@ -1,13 +1,12 @@
-// Fused constrained 3D-Gaussian Levenberg-Marquardt fit, one warp per spot.
+// Fused constrained 3D-Gaussian Levenberg-Marquardt fit, one block of G
+// warps per spot.
 //
 // Replaces: imageanalysis3_tpu/ops/pallas_lm.py, lm_fit_pallas (kernel body
 // _lm_kernel).  Same inputs and outputs: pixels (N, P) f32, coords (N, P, 3)
 // f32, mask (N, P) bool, centres (N, 3), delta (N,), params0 (N, 10) ->
-// params (N, 10), eps (N,).  N needs no padding: every spot is one warp, so
-// there are no padded lanes (the TPU kernel pads N to 128 lanes and gives the
-// padding delta = 1; here nothing is padded).
+// params (N, 10), eps (N,).  N needs no padding: every spot is one block.
 //
-// Arithmetic, per LM iteration and spot:
+// Arithmetic, per LM iteration and spot (as lm_kernel.lm_fit_plain):
 //   geometry   coff = delta*tanh(-c/2), ws = min_ws + (max_ws-min_ws)*
 //              sigmoid(-w), p/t = tanh(-./2), A6 = rotated quadform of 1/ws;
 //              its 9x10 Jacobian written out by hand (the TPU kernel gets it
@@ -16,24 +15,42 @@
 //              peak = exp(h - q/2), r = (exp(clip(bk, +-70)) + peak - px)*mk,
 //              J^T rows 0/1 closed form (row 0 masked by bk in [-70, 70]),
 //              rows 2..9 = -peak/2 * mk * (GA . basis6 - 2 (M GC) . d);
-//   reduce     g (10) and the 55 entries of H by __shfl_xor_sync butterflies
-//              (every lane ends with bitwise-identical sums);
 //   solve      (H + lam*diag H + 1e-8 I) dx = -g by 12-step CG with the
-//              1e-20 guards of gaussian_fit._cg_solve_spd, run redundantly
-//              in every lane, the matrix in shared memory;
-//   accept     one more pixel pass for the trial cost; accept when it drops
-//              and the step is finite; lam /3 or *3 clamped to [1e-7, 1e7].
+//              1e-20 guards of gaussian_fit._cg_solve_spd;
+//   accept     when the trial cost drops and the step is finite; lam /3 or
+//              *3 clamped to [1e-7, 1e7]; eps = mean |residual| over the mask.
 //
-// What bounds it on an H100: arithmetic.  The main path's round 0 moves
-// ~21 MB (pixels, coords, mask, params) but does ~270 flop per pixel per
-// iteration plus the per-spot CG (2048 spots x 512 pixels x 8 iterations
-// ~ 2.4 GFLOP, chip_smoke.py's count); the data are read once into
-// registers (P/32 pixels, their
-// coordinates and mask per lane) and never re-read from device memory.
-// The design keeps every per-pixel term in registers and reduces with warp
-// shuffles, so device memory is touched only for the one load and the
-// final store.  Later work: several spots per warp for small P, and the
-// exp on the SFU path of a tuned kernel.
+// What bounds it on an H100.  The work is arithmetic (~160 instructions a
+// pixel and iteration, ~21 MB read once for the main path's 2048 x 512
+// round 0), but a spot's iterations form one serial chain: pixel pass ->
+// reduction -> 12 dependent CG steps -> the trial's geometry -> the next
+// pass.  The CG is the longest link, and only one warp of the spot runs it.
+// So the time is the chain's latency times the number of waves of spots the
+// card holds, and the design shortens the chain and holds more spots:
+//   * a spot is one block of G = ceil(P / 256) warps (1, 2 or 4; 2 at the
+//     main path's P = 512), so a thread walks at most 8 of its pixels; the
+//     pixels, relative coordinates and mask sit in shared memory (20 B a
+//     pixel); registers hold the 67 running sums of g, H, cost and sum |r|
+//     and one pixel's terms, and the J^T-row coefficients are read per
+//     pixel from shared memory by 16-byte loads, which keeps a thread at 128
+//     registers: 8 spots (16 warps) per SM at P = 512;
+//   * one pixel pass per iteration, at the trial point: it yields the trial
+//     cost and sum |r| together with the trial's g and H.  A rejected step
+//     keeps the previous g and H (the parameters did not move), an accepted
+//     one has its new g and H already, and eps is the accepted pass's
+//     sum |r|: the same LM trajectory in exact arithmetic as the reference's
+//     J pass + cost pass + eps pass;
+//   * a reduce-scatter over the warp: each shuffle step halves the set of
+//     sums a lane carries (62 shuffles leave lane l with sums 2l, 2l+1 of
+//     g and H, 3 butterflies add the rest), then the G warps' partial sums
+//     add through shared memory in a fixed order;
+//   * the 10x10 CG in warp 0, row-parallel: lane a holds row a of the damped
+//     matrix, computes (A p)_a, and 10 shuffles give every lane all of A p;
+//     p, r, x and the dot products (pairwise trees) are replicated in every
+//     lane, so a CG step has no reduction over lanes.  The other warps wait
+//     at the block's barrier;
+//   * the trial's geometry in warp 0 too: one transcendental per lane
+//     (5 tanh, 3 sigmoids), shuffled to every lane, which forms the rest.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,8 +58,15 @@
 
 namespace {
 
-constexpr int WARPS_PER_BLOCK = 4;
 constexpr unsigned FULL = 0xffffffffu;
+// running sums of a pass: g (10), H packed upper triangle row by row (55),
+// cost, sum |r|
+constexpr int NG = 10, NH = 55, I_COST = NG + NH, I_ABS = I_COST + 1;
+constexpr int NSUM = I_ABS + 1;   // 67
+constexpr int NSCAT = 64;         // the reduce-scatter's share; 64..66 apart
+constexpr int NRED = 68;          // padded row of the cross-warp buffer
+// resident warps each SM should hold, for the register budget
+constexpr int TARGET_WARPS = 16;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -59,32 +83,32 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Per-spot geometry at params: A6, centre offset; with `jac`, also the
-// pixel-independent coefficients of J^T rows 2..9:
+// index of H[i][j], i <= j, in the packed upper triangle
+__host__ __device__ constexpr int hidx(int i, int j) {
+  return NG + i * (19 - i) / 2 + j;
+}
+
+// Per-spot geometry at params: A6, centre offset and the pixel-independent
+// coefficients of J^T rows 2..9:
 //   rows 2..4 (centre): dq = cd[i] . d       (cd = -2 M GC column)
 //   rows 5..9 (widths, angles): dq = ga[t] . basis6
-struct Geometry {
+struct __align__(16) Geometry {
+  float ga[5][8];   // [param 5+t][basis term], rows padded to 8
+  float cd[3][4];   // [centre param i][component of d], padded to 4
   float a[6];
   float c[3];
-  float cd[3][3];   // [centre param i][component of d]
-  float ga[5][6];   // [param 5+t][basis term]
 };
 
-__device__ void geometry(const float* prm, float dl, float min_ws, float max_ws,
-                         bool jac, Geometry& g) {
-  float th[3];
-  for (int i = 0; i < 3; ++i) {
-    th[i] = tanhf(-prm[2 + i] / 2.0f);
-    g.c[i] = dl * th[i];
-  }
-  float sig[3], ws[3], s[3];
-  for (int i = 0; i < 3; ++i) {
-    sig[i] = sigmoid(-prm[5 + i]);
-    ws[i] = min_ws + (max_ws - min_ws) * sig[i];
-    s[i] = 1.0f / ws[i];
-  }
-  const float p = tanhf(-prm[8] / 2.0f);
-  const float t = tanhf(-prm[9] / 2.0f);
+// The geometry from its transcendental scalars: th = tanh(-c/2) of the
+// centre params, sig = sigmoid(-w) and s = 1/ws of the width params,
+// p, t = tanh(-./2) of the angle params.
+__device__ __forceinline__ void geometry(const float (&th)[3],
+                                         const float (&sig)[3],
+                                         const float (&s)[3], float p, float t,
+                                         float dl, float min_ws, float max_ws,
+                                         Geometry& g) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) g.c[i] = dl * th[i];
   const float s1 = s[0], s2 = s[1], s3 = s[2];
   const float p2 = p * p, t2 = t * t;
   const float tc2 = 1.0f - t2, pc2 = 1.0f - p2;
@@ -98,14 +122,15 @@ __device__ void geometry(const float* prm, float dl, float min_ws, float max_ws,
   g.a[3] = 2.0f * tc * t * m12;
   g.a[4] = 2.0f * p * pc * tc * s31;
   g.a[5] = 2.0f * p * pc * t * s31;
-  if (!jac) return;
 
   // centre columns: GC[i][2+i] = -delta/2 (1 - tanh^2); cd = -2 M GC
   const float m[3][3] = {{g.a[0], 0.5f * g.a[3], 0.5f * g.a[4]},
                          {0.5f * g.a[3], g.a[1], 0.5f * g.a[5]},
                          {0.5f * g.a[4], 0.5f * g.a[5], g.a[2]}};
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float gc = -0.5f * dl * (1.0f - th[i] * th[i]);
+#pragma unroll
     for (int j = 0; j < 3; ++j) g.cd[i][j] = -2.0f * (m[j][i] * gc);
   }
   // width columns: dA/ds_i * ds_i/dw_i, ds/dw = (max-min) sig (1-sig) s^2
@@ -115,8 +140,10 @@ __device__ void geometry(const float* prm, float dl, float min_ws, float max_ws,
       {t2, tc2, 0.0f, -2.0f * tc * t, 0.0f, 0.0f},
       {p2 * tc2, p2 * t2, pc2, 2.0f * tc * t * p2, 2.0f * p * pc * tc,
        2.0f * p * pc * t}};
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float ds = (max_ws - min_ws) * sig[i] * (1.0f - sig[i]) * s[i] * s[i];
+#pragma unroll
     for (int k = 0; k < 6; ++k) g.ga[i][k] = d_s[i][k] * ds;
   }
   // angle columns; d sqrt(max(u, 0)) as JAX forms it (half on the tie)
@@ -134,223 +161,347 @@ __device__ void geometry(const float* prm, float dl, float min_ws, float max_ws,
   const float d_t[6] = {-2.0f * t * m12, 2.0f * t * m12, 0.0f,
                         2.0f * (dtc * t + tc) * m12, 2.0f * p * pc * dtc * s31,
                         2.0f * p * pc * s31};
+#pragma unroll
   for (int k = 0; k < 6; ++k) {
     g.ga[3][k] = d_p[k] * dp;
     g.ga[4][k] = d_t[k] * dt;
   }
 }
 
-template <int NPL>
-struct Pixels {
-  float px[NPL], d0[NPL], d1[NPL], d2[NPL], mk[NPL];
-};
-
-// sum of squared (jac = false: nothing else) masked residuals at params
-template <int NPL>
-__device__ float cost_at(const Pixels<NPL>& pix, const float* prm, float dl,
-                         float min_ws, float max_ws) {
-  Geometry g;
-  geometry(prm, dl, min_ws, max_ws, false, g);
-  const float ebk = expf(fminf(fmaxf(prm[0], -70.0f), 70.0f));
-  float acc = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const float d0 = pix.d0[i] - g.c[0], d1 = pix.d1[i] - g.c[1],
-                d2 = pix.d2[i] - g.c[2];
-    const float q = g.a[0] * d0 * d0 + g.a[1] * d1 * d1 + g.a[2] * d2 * d2 +
-                    g.a[3] * d0 * d1 + g.a[4] * d0 * d2 + g.a[5] * d1 * d2;
-    const float r = (ebk + expf(prm[1] - 0.5f * q) - pix.px[i]) * pix.mk[i];
-    acc += r * r;
-  }
-  return warp_sum(acc);
+// a 16-byte shared-memory load the compiler keeps where it is
+__device__ __forceinline__ float4 lds4(const float* p) {
+  float4 v;
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a));
+  return v;
 }
 
-template <int NPL>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+// What the block shares besides the pixels: the G warps' partial sums, the
+// summed g/H/cost of the current point and of the trial, and the trial's
+// geometry and scalars.
+template <int G>
+struct Shared {
+  float red[G][NRED];
+  float tot[2][NRED];
+  Geometry geo;
+  float h, ebk, in_range;   // log-height, exp(clip(bk)), bk in [-70, 70]
+  float npx;                // pixels under the mask
+  float prm[10], trial[10]; // the current point and the trial
+};
+
+// One pass over the spot's pixels at the geometry in `sh`: this thread's
+// share of g, H, cost and sum |r| in s.
+template <int G>
+__device__ __forceinline__ void pixel_pass(const Shared<G>& sh,
+                                           const float* __restrict__ spx,
+                                           const float* __restrict__ sd0,
+                                           const float* __restrict__ sd1,
+                                           const float* __restrict__ sd2,
+                                           const float* __restrict__ smk,
+                                           int p, float (&s)[NSUM]) {
+#pragma unroll
+  for (int k = 0; k < NSUM; ++k) s[k] = 0.0f;
+  const Geometry& g = sh.geo;
+  const float hh = sh.h, ebk = sh.ebk, jt0 = sh.ebk * sh.in_range;
+#pragma unroll 1
+  for (int q = threadIdx.x; q < p; q += G * 32) {
+    const float d0 = sd0[q] - g.c[0], d1 = sd1[q] - g.c[1],
+                d2 = sd2[q] - g.c[2];
+    const float b[6] = {d0 * d0, d1 * d1, d2 * d2, d0 * d1, d0 * d2, d1 * d2};
+    const float qf = g.a[0] * b[0] + g.a[1] * b[1] + g.a[2] * b[2] +
+                     g.a[3] * b[3] + g.a[4] * b[4] + g.a[5] * b[5];
+    const float mk = smk[q];
+    const float peak = expf(hh - 0.5f * qf);
+    const float r = (ebk + peak - spx[q]) * mk;
+    s[I_COST] += r * r;
+    s[I_ABS] += fabsf(r);
+    const float hp = -0.5f * peak * mk;
+    float jt[10];
+    jt[0] = jt0 * mk;
+    jt[1] = peak * mk;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float4 v = lds4(&g.cd[c][0]);
+      jt[2 + c] = hp * (v.x * d0 + v.y * d1 + v.z * d2);
+    }
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      const float4 u = lds4(&g.ga[c][0]), v = lds4(&g.ga[c][4]);
+      jt[5 + c] = hp * (u.x * b[0] + u.y * b[1] + u.z * b[2] + u.w * b[3] +
+                        v.x * b[4] + v.y * b[5]);
+    }
+#pragma unroll
+    for (int a = 0; a < 10; ++a) {
+      s[a] += jt[a] * r;
+#pragma unroll
+      for (int c = a; c < 10; ++c) s[hidx(a, c)] += jt[a] * jt[c];
+    }
+  }
+}
+
+// c ? a : b as a value select: the running sums must stay in registers,
+// and a select between two array elements may otherwise become a computed
+// address into local memory.
+__device__ __forceinline__ float pick(bool c, float a, float b) {
+  float r;
+  asm("{\n .reg .pred q;\n setp.ne.b32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}"
+      : "=f"(r) : "f"(a), "f"(b), "r"((int)c));
+  return r;
+}
+
+// One step of the reduce-scatter: lanes HALF / 2 apart swap halves of
+// s[0, 2 HALF), each keeping the half its lane bit selects, summed.  (A
+// template so that every index is a constant and s stays in registers.)
+template <int HALF>
+__device__ __forceinline__ void scatter_step(float (&s)[NSUM], int lane) {
+  const bool up = lane & (HALF / 2);
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = pick(up, s[i], s[i + HALF]);
+    const float keep = pick(up, s[i + HALF], s[i]);
+    s[i] = keep + __shfl_xor_sync(FULL, send, HALF / 2);
+  }
+}
+
+// Sum s over the block into tot: a reduce-scatter in each warp (lane l ends
+// with sums 2l and 2l+1 of the first 64, every lane with the last 3), the
+// warps' shares through red, added in warp order by warp 0.  Ends with
+// warp 0 synchronised; the caller's barrier comes before.
+template <int G>
+__device__ __forceinline__ void block_sum(Shared<G>& sh, float (&s)[NSUM],
+                                          float* tot) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  scatter_step<32>(s, lane);
+  scatter_step<16>(s, lane);
+  scatter_step<8>(s, lane);
+  scatter_step<4>(s, lane);
+  scatter_step<2>(s, lane);
+#pragma unroll
+  for (int k = NSCAT; k < NSUM; ++k) s[k] = warp_sum(s[k]);
+  float* out = G == 1 ? tot : sh.red[w];
+  out[2 * lane] = s[0];
+  out[2 * lane + 1] = s[1];
+  if (lane < NSUM - NSCAT)
+    out[NSCAT + lane] = pick(lane == 0, s[NSCAT],
+                             pick(lane == 1, s[NSCAT + 1], s[NSCAT + 2]));
+  if (G == 1) {
+    __syncwarp();
+    return;
+  }
+  __syncthreads();
+  if (w == 0) {
+    for (int k = lane; k < NSUM; k += 32) {
+      float v = sh.red[0][k];
+#pragma unroll
+      for (int j = 1; j < G; ++j) v += sh.red[j][k];
+      tot[k] = v;
+    }
+    __syncwarp();
+  }
+}
+
+// a pairwise sum of 10 values (depth 4)
+__device__ __forceinline__ float sum10(const float (&t)[10]) {
+  return (((t[0] + t[1]) + (t[2] + t[3])) + ((t[4] + t[5]) + (t[6] + t[7])))
+         + (t[8] + t[9]);
+}
+
+// CG on (H + lam diag H + 1e-8 I) x = -g in one warp: lane a < 10 holds row
+// a of the matrix; p, r, x replicated in every lane.  Returns x in every
+// lane.
+__device__ __forceinline__ void cg_solve(const float* tot, float lam,
+                                         int cg_iters, float (&x)[10]) {
+  const int lane = threadIdx.x & 31;
+  float arow[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    float v = 0.0f;
+    if (lane < 10) {
+      v = tot[lane <= k ? hidx(lane, k) : hidx(k, lane)];
+      if (k == lane) v = v + lam * v + 1e-8f;
+    }
+    arow[k] = v;
+  }
+  float r[10], pp[10], t[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    x[k] = 0.0f;
+    r[k] = -tot[k];
+    pp[k] = r[k];
+    t[k] = r[k] * r[k];
+  }
+  float rs = sum10(t);
+  for (int c = 0; c < cg_iters; ++c) {
+    float m0 = 0.0f, m1 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 10; k += 2) {
+      m0 += arow[k] * pp[k];
+      m1 += arow[k + 1] * pp[k + 1];
+    }
+    const float mine = m0 + m1;
+    float ap[10], t[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) ap[k] = __shfl_sync(FULL, mine, k);
+#pragma unroll
+    for (int k = 0; k < 10; ++k) t[k] = pp[k] * ap[k];
+    const float pap = sum10(t);
+    const float alpha = rs / nan_max(pap, 1e-20f);
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      x[k] += alpha * pp[k];
+      r[k] -= alpha * ap[k];
+      t[k] = r[k] * r[k];
+    }
+    const float rs_new = sum10(t);
+    const float beta = rs_new / nan_max(rs, 1e-20f);
+#pragma unroll
+    for (int k = 0; k < 10; ++k) pp[k] = r[k] + beta * pp[k];
+    rs = rs_new;
+  }
+}
+
+// The geometry and scalars of `prm` (in shared memory) into sh, by warp 0:
+// one transcendental scalar per lane (tanh of params 2, 3, 4, 8, 9 in lanes
+// 0-4, the width sigmoids and 1/ws in lanes 0-2), shuffled to every lane,
+// which forms the rest; lane 0 stores it.
+template <int G>
+__device__ __forceinline__ void set_point(Shared<G>& sh, const float* prm,
+                                          float dl, float min_ws,
+                                          float max_ws) {
+  const int lane = threadIdx.x & 31;
+  const float th_l = tanhf(-prm[lane < 3 ? 2 + lane : lane == 3 ? 8 : 9] /
+                           2.0f);
+  const float sig_l = sigmoid(-prm[5 + min(lane, 2)]);
+  const float s_l = 1.0f / (min_ws + (max_ws - min_ws) * sig_l);
+  float th[3], sig[3], s[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    th[i] = __shfl_sync(FULL, th_l, i);
+    sig[i] = __shfl_sync(FULL, sig_l, i);
+    s[i] = __shfl_sync(FULL, s_l, i);
+  }
+  const float p = __shfl_sync(FULL, th_l, 3), t = __shfl_sync(FULL, th_l, 4);
+  Geometry g;
+  geometry(th, sig, s, p, t, dl, min_ws, max_ws, g);
+  if (lane == 0) {
+    sh.geo = g;
+    sh.h = prm[1];
+    sh.ebk = expf(fminf(fmaxf(prm[0], -70.0f), 70.0f));
+    sh.in_range = (prm[0] >= -70.0f && prm[0] <= 70.0f) ? 1.0f : 0.0f;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(G * 32, TARGET_WARPS / G)
 lm_fit_kernel(const float* __restrict__ pixels, const float* __restrict__ coords,
               const unsigned char* __restrict__ mask,
               const float* __restrict__ centers, const float* __restrict__ delta,
               const float* __restrict__ params0, float* __restrict__ params_out,
-              float* __restrict__ eps_out, int n, int p, int lm_iters,
-              int cg_iters, float min_w, float max_w) {
-  __shared__ float amat[WARPS_PER_BLOCK][10][10];
-  const int wib = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int spot = blockIdx.x * WARPS_PER_BLOCK + wib;
-  if (spot >= n) return;  // the whole warp leaves together
-  float (*A)[10] = amat[wib];
+              float* __restrict__ eps_out, int p, int lm_iters, int cg_iters,
+              float min_w, float max_w) {
+  __shared__ Shared<G> sh;
+  extern __shared__ float spix[];   // px, d0, d1, d2, mk: P each
+  float* spx = spix;
+  float* sd0 = spix + p;
+  float* sd1 = spix + 2 * p;
+  float* sd2 = spix + 3 * p;
+  float* smk = spix + 4 * p;
+  const int spot = blockIdx.x;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const float min_ws = min_w * min_w, max_ws = max_w * max_w;
+  const float dl = delta[spot];
 
-  Pixels<NPL> pix;
+  if (threadIdx.x == 0) sh.npx = 0.0f;
   const float c0 = centers[3 * spot], c1 = centers[3 * spot + 1],
               c2 = centers[3 * spot + 2];
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int q = lane + 32 * i;
-    if (q < p) {
-      const size_t o = (size_t)spot * p + q;
-      pix.px[i] = pixels[o];
-      pix.mk[i] = mask[o] ? 1.0f : 0.0f;
-      pix.d0[i] = coords[3 * o] - c0;
-      pix.d1[i] = coords[3 * o + 1] - c1;
-      pix.d2[i] = coords[3 * o + 2] - c2;
-    } else {
-      pix.px[i] = 0.0f;
-      pix.mk[i] = 0.0f;
-      pix.d0[i] = pix.d1[i] = pix.d2[i] = 0.0f;
-    }
+  float nmk = 0.0f;
+  for (int q = threadIdx.x; q < p; q += G * 32) {
+    const size_t o = (size_t)spot * p + q;
+    spx[q] = pixels[o];
+    const float m = mask[o] ? 1.0f : 0.0f;
+    smk[q] = m;
+    nmk += m;
+    sd0[q] = coords[3 * o] - c0;
+    sd1[q] = coords[3 * o + 1] - c1;
+    sd2[q] = coords[3 * o + 2] - c2;
   }
-  const float dl = delta[spot];
-  float prm[10];
-  for (int k = 0; k < 10; ++k) prm[k] = params0[10 * spot + k];
-  float cost = cost_at<NPL>(pix, prm, dl, min_ws, max_ws);
-  float lam = 1e-3f;
+  nmk = warp_sum(nmk);
+  __syncthreads();
+  // integer counts: exact in any order
+  if (lane == 0) atomicAdd(&sh.npx, nmk);
+
+  // warp 0 carries the state: the points in sh, the rest in its lanes
+  float cost = 0.0f, sabs = 0.0f, lam = 1e-3f;
+  int cur = 0;
+  if (threadIdx.x < 10) sh.prm[threadIdx.x] = params0[10 * spot + threadIdx.x];
+  __syncwarp();
+  if (w == 0) set_point(sh, sh.prm, dl, min_ws, max_ws);
+  __syncthreads();
+  float s[NSUM];
+  pixel_pass(sh, spx, sd0, sd1, sd2, smk, p, s);
+  block_sum(sh, s, sh.tot[0]);
+  if (w == 0) {
+    cost = sh.tot[0][I_COST];
+    sabs = sh.tot[0][I_ABS];
+  }
 
   for (int it = 0; it < lm_iters; ++it) {
-    Geometry g;
-    geometry(prm, dl, min_ws, max_ws, true, g);
-    const float bk = prm[0];
-    const float ebk = expf(fminf(fmaxf(bk, -70.0f), 70.0f));
-    const float in_range = (bk >= -70.0f && bk <= 70.0f) ? 1.0f : 0.0f;
-    float gs[10], hs[55];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) gs[k] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 55; ++k) hs[k] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) {
-      const float d0 = pix.d0[i] - g.c[0], d1 = pix.d1[i] - g.c[1],
-                  d2 = pix.d2[i] - g.c[2];
-      const float b[6] = {d0 * d0, d1 * d1, d2 * d2, d0 * d1, d0 * d2, d1 * d2};
-      const float q = g.a[0] * b[0] + g.a[1] * b[1] + g.a[2] * b[2] +
-                      g.a[3] * b[3] + g.a[4] * b[4] + g.a[5] * b[5];
-      const float mk = pix.mk[i];
-      const float peak = expf(prm[1] - 0.5f * q);
-      const float r = (ebk + peak - pix.px[i]) * mk;
-      const float hp = -0.5f * peak * mk;
-      float jt[10];
-      jt[0] = ebk * in_range * mk;
-      jt[1] = peak * mk;
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        jt[2 + c] = hp * (g.cd[c][0] * d0 + g.cd[c][1] * d1 + g.cd[c][2] * d2);
-#pragma unroll
-      for (int c = 0; c < 5; ++c)
-        jt[5 + c] = hp * (g.ga[c][0] * b[0] + g.ga[c][1] * b[1] +
-                          g.ga[c][2] * b[2] + g.ga[c][3] * b[3] +
-                          g.ga[c][4] * b[4] + g.ga[c][5] * b[5]);
-      int h = 0;
-#pragma unroll
-      for (int a = 0; a < 10; ++a) {
-        gs[a] += jt[a] * r;
-#pragma unroll
-        for (int c = a; c < 10; ++c) hs[h++] += jt[a] * jt[c];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 10; ++k) gs[k] = warp_sum(gs[k]);
-    {
-      int h = 0;
-#pragma unroll
-      for (int a = 0; a < 10; ++a) {
-#pragma unroll
-        for (int c = a; c < 10; ++c) {
-          const float v = warp_sum(hs[h++]);
-          if (lane == 0) {
-            A[a][c] = (a == c) ? v + lam * v + 1e-8f : v;
-            A[c][a] = A[a][c];
-          }
-        }
-      }
-    }
-    __syncwarp();
-
-    // CG on A x = -g, redundantly in every lane
-    float x[10], rr[10], pp[10], ap[10];
-    float rs = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 10; ++k) {
-      x[k] = 0.0f;
-      rr[k] = -gs[k];
-      pp[k] = rr[k];
-      rs += rr[k] * rr[k];
-    }
-    for (int c = 0; c < cg_iters; ++c) {
-      float pap = 0.0f;
-#pragma unroll
-      for (int a = 0; a < 10; ++a) {
-        float v = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 10; ++k) v += A[a][k] * pp[k];
-        ap[a] = v;
-        pap += pp[a] * v;
-      }
-      const float alpha = rs / nan_max(pap, 1e-20f);
-      float rs_new = 0.0f;
+    bool finite = true;
+    if (w == 0) {
+      float x[10];
+      cg_solve(sh.tot[cur], lam, cg_iters, x);
 #pragma unroll
       for (int k = 0; k < 10; ++k) {
-        x[k] += alpha * pp[k];
-        rr[k] -= alpha * ap[k];
-        rs_new += rr[k] * rr[k];
+        const float t = sh.prm[k] + x[k];
+        finite = finite && isfinite(t);
+        if (lane == 0) sh.trial[k] = t;
       }
-      const float beta = rs_new / nan_max(rs, 1e-20f);
-#pragma unroll
-      for (int k = 0; k < 10; ++k) pp[k] = rr[k] + beta * pp[k];
-      rs = rs_new;
+      __syncwarp();
+      set_point(sh, sh.trial, dl, min_ws, max_ws);
     }
-    __syncwarp();  // A is rewritten next iteration
-
-    float trial[10];
-    bool finite = true;
-#pragma unroll
-    for (int k = 0; k < 10; ++k) {
-      trial[k] = prm[k] + x[k];
-      finite = finite && isfinite(trial[k]);
-    }
-    const float new_cost = cost_at<NPL>(pix, trial, dl, min_ws, max_ws);
-    const bool ok = (new_cost < cost) && finite;
-    if (ok) {
-#pragma unroll
-      for (int k = 0; k < 10; ++k) prm[k] = trial[k];
-      cost = new_cost;
-      lam = fmaxf(lam / 3.0f, 1e-7f);
-    } else {
-      lam = fminf(lam * 3.0f, 1e7f);
+    __syncthreads();   // the trial's geometry; red is free
+    pixel_pass(sh, spx, sd0, sd1, sd2, smk, p, s);
+    block_sum(sh, s, sh.tot[cur ^ 1]);
+    if (w == 0) {
+      const float new_cost = sh.tot[cur ^ 1][I_COST];
+      if (new_cost < cost && finite) {
+        if (lane < 10) sh.prm[lane] = sh.trial[lane];
+        __syncwarp();
+        cost = new_cost;
+        sabs = sh.tot[cur ^ 1][I_ABS];
+        cur ^= 1;
+        lam = fmaxf(lam / 3.0f, 1e-7f);
+      } else {
+        lam = fminf(lam * 3.0f, 1e7f);
+      }
     }
   }
 
-  // eps = mean |residual| over the mask
-  Geometry g;
-  geometry(prm, dl, min_ws, max_ws, false, g);
-  const float ebk = expf(fminf(fmaxf(prm[0], -70.0f), 70.0f));
-  float sabs = 0.0f, npx = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const float d0 = pix.d0[i] - g.c[0], d1 = pix.d1[i] - g.c[1],
-                d2 = pix.d2[i] - g.c[2];
-    const float q = g.a[0] * d0 * d0 + g.a[1] * d1 * d1 + g.a[2] * d2 * d2 +
-                    g.a[3] * d0 * d1 + g.a[4] * d0 * d2 + g.a[5] * d1 * d2;
-    const float r = (ebk + expf(prm[1] - 0.5f * q) - pix.px[i]) * pix.mk[i];
-    sabs += fabsf(r);
-    npx += pix.mk[i];
-  }
-  sabs = warp_sum(sabs);
-  npx = warp_sum(npx);
-  if (lane == 0) {
-    for (int k = 0; k < 10; ++k) params_out[10 * spot + k] = prm[k];
-    eps_out[spot] = sabs / fmaxf(npx, 1.0f);
-  }
+  if (threadIdx.x < 10) params_out[10 * spot + threadIdx.x] = sh.prm[threadIdx.x];
+  if (threadIdx.x == 0) eps_out[spot] = sabs / fmaxf(sh.npx, 1.0f);
 }
 
-template <int NPL>
+// warps per spot for P pixels: at most 8 pixels a thread
+int group_warps(int p) {
+  return p <= 256 ? 1 : p <= 512 ? 2 : 4;
+}
+
+const void* kernel_for(int g) {
+  return g == 1 ? reinterpret_cast<const void*>(&lm_fit_kernel<1>)
+       : g == 2 ? reinterpret_cast<const void*>(&lm_fit_kernel<2>)
+                : reinterpret_cast<const void*>(&lm_fit_kernel<4>);
+}
+
+template <int G>
 cudaError_t launch(const float* pixels, const float* coords,
                    const unsigned char* mask, const float* centers,
                    const float* delta, const float* params0, float* params,
                    float* eps, int n, int p, int lm_iters, int cg_iters,
                    float min_w, float max_w, cudaStream_t stream) {
-  const int blocks = (n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  lm_fit_kernel<NPL><<<blocks, WARPS_PER_BLOCK * 32, 0, stream>>>(
-      pixels, coords, mask, centers, delta, params0, params, eps, n, p,
+  const size_t smem = 5 * sizeof(float) * (size_t)p;
+  lm_fit_kernel<G><<<n, G * 32, smem, stream>>>(
+      pixels, coords, mask, centers, delta, params0, params, eps, p,
       lm_iters, cg_iters, min_w, max_w);
   return cudaGetLastError();
 }
@@ -374,20 +525,26 @@ extern "C" int lm_fit_launch(const void* pixels, const void* coords,
   float* out = static_cast<float*>(params);
   float* ep = static_cast<float*>(eps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (p <= 128)
-    e = launch<4>(px, co, mk, ce, dl, p0, out, ep, n, p, lm_iters, cg_iters,
-                  min_w, max_w, s);
-  else if (p <= 256)
-    e = launch<8>(px, co, mk, ce, dl, p0, out, ep, n, p, lm_iters, cg_iters,
-                  min_w, max_w, s);
-  else if (p <= 512)
-    e = launch<16>(px, co, mk, ce, dl, p0, out, ep, n, p, lm_iters, cg_iters,
-                   min_w, max_w, s);
-  else
-    e = launch<32>(px, co, mk, ce, dl, p0, out, ep, n, p, lm_iters, cg_iters,
-                   min_w, max_w, s);
-  return (int)e;
+  const int g = group_warps(p);
+  return (int)(g == 1 ? launch<1>(px, co, mk, ce, dl, p0, out, ep, n, p,
+                                  lm_iters, cg_iters, min_w, max_w, s)
+             : g == 2 ? launch<2>(px, co, mk, ce, dl, p0, out, ep, n, p,
+                                  lm_iters, cg_iters, min_w, max_w, s)
+                      : launch<4>(px, co, mk, ce, dl, p0, out, ep, n, p,
+                                  lm_iters, cg_iters, min_w, max_w, s));
+}
+
+// Resident blocks (spots) per SM of the kernel P pixels launch, its threads
+// and dynamic shared-memory bytes per block, as the card grants them (for
+// logging).
+extern "C" int lm_fit_occupancy(int p, int* blocks, int* threads,
+                                int* smem_bytes) {
+  if (p <= 0 || p > 1024) return (int)cudaErrorInvalidValue;
+  const int g = group_warps(p);
+  *threads = 32 * g;
+  *smem_bytes = (int)(5 * sizeof(float) * (size_t)p);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel_for(g), *threads, *smem_bytes);
 }
 
 extern "C" const char* ia3_cuda_error_string(int code) {

@@ -15,8 +15,9 @@ spot:
     finite, lam /3 or *3 clamped to [1e-7, 1e7];
   * eps = mean |residual| over the mask.
 
-A CUDA tensor goes to ``csrc/lm_fit.cu`` (one warp per spot); a CPU tensor
-to :func:`lm_fit_plain`, the batched PyTorch engine the CPU path uses.
+A CUDA tensor goes to ``csrc/lm_fit.cu`` (one block of 1-8 warps per spot,
+by P); a CPU tensor to :func:`lm_fit_plain`, the batched PyTorch engine
+the CPU path uses.
 """
 
 from __future__ import annotations
@@ -290,7 +291,7 @@ def lm_fit_plain(pixels: torch.Tensor, coords: torch.Tensor,
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_MAX_P = 1024       # 32 pixels per lane
+_MAX_P = 1024       # 8 warps of 4 pixels a thread
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -314,15 +315,15 @@ def lm_fit_cuda(pixels: torch.Tensor, coords: torch.Tensor,
     """Launch ``csrc/lm_fit.cu`` on the current stream."""
     global launches
     n, p = pixels.shape
+    if not 1 <= p <= _MAX_P:
+        raise ValueError(f"lm_fit_cuda: P={p} pixels per spot, the "
+                         f"kernel takes 1..{_MAX_P}")
     _check(pixels, "pixels", torch.float32, (n, p))
     _check(coords, "coords", torch.float32, (n, p, 3))
     _check(mask, "mask", torch.bool, (n, p))
     _check(centers, "centers", torch.float32, (n, 3))
     _check(delta, "delta", torch.float32, (n,))
     _check(params0, "params0", torch.float32, (n, 10))
-    if not 1 <= p <= _MAX_P:
-        raise ValueError(f"lm_fit_cuda: P={p} pixels per spot, the "
-                         f"kernel takes 1..{_MAX_P}")
     params = torch.empty((n, 10), dtype=torch.float32, device=pixels.device)
     eps = torch.empty((n,), dtype=torch.float32, device=pixels.device)
     if n == 0:
@@ -345,6 +346,20 @@ def lm_fit_cuda(pixels: torch.Tensor, coords: torch.Tensor,
                            f"{err(rc).decode()} ({rc})")
     launches += 1
     return params, eps
+
+
+def lm_occupancy_cuda(p: int) -> Tuple[int, int, int]:
+    """(resident blocks = spots per SM, threads per block, dynamic shared
+    memory bytes per block) of the ``csrc/lm_fit.cu`` kernel that P pixels
+    per spot launch, as the card grants them."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    fn = _build.load("lm_fit").lm_fit_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    rc = fn(int(p), *(ctypes.addressof(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"lm_fit occupancy query failed ({rc})")
+    return tuple(v.value for v in out)
 
 
 def lm_fit(pixels: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,

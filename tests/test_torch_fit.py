@@ -121,6 +121,91 @@ def test_lm_fit_plain_matches_jax(lm_batch, reference):
                                rtol=1e-3)
 
 
+def _blocks(radius, n=120, seed=4):
+    """Round-0 inputs (numpy) of up to 128 spots (one Pallas block) of a
+    24x160x160 scene at fitting radius `radius`: ownership-masked blocks,
+    the contested/isolated centre boxes and JAX's init params."""
+    im, truth = _scene((24, 160, 160), n, seed, seed + 1, min_sep=8.0)
+    seeds = truth["centers"][:128].round().astype(np.float32)
+    valid = np.ones(len(seeds), bool)
+    s, v = jnp.asarray(seeds), jnp.asarray(valid)
+    px, co, base = jg.gather_blocks(jnp.asarray(im), s, radius)
+    nidx, nmask = jg.neighbor_lists(s, v, radius=radius)
+    own = jax.vmap(jg.ownership_mask)(co, s, s[nidx], nmask)
+    mk = base & own
+    delta = np.where(np.asarray(jnp.any(nmask, axis=1)), 1.0,
+                     2.5).astype(np.float32)
+    p0 = jax.vmap(lambda a, b, c, d, e: jg.init_params(
+        a, b, MIN_W, MAX_W, INIT_W, coords=c, center_est=d, delta=e))(
+        px, mk, co, s, jnp.asarray(delta))
+    arrays = [np.array(a) for a in (px, co, mk)] + [seeds, delta,
+                                                    np.array(p0)]
+    return arrays, valid, np.asarray(nidx), np.asarray(nmask)
+
+
+def _refit_blocks():
+    """A warm-started Jacobi refit batch as iter_fit_seed_points builds it
+    (the port's functions on its plain round-0 result): the contested
+    spots, params rebased into the wide box, the neighbours'
+    reconstructions subtracted, delta 2.5."""
+    (px, co, mk, seeds, delta, p0), valid, nidx, nmask = _blocks(5, 120, 6)
+    t = [torch.from_numpy(a) for a in (px, co, mk, seeds, delta, p0)]
+    prm, eps = tl.lm_fit_plain(*t, MIN_W, MAX_W, lm_iters=8)
+    nat = tg.to_natural(prm, t[3], t[4], MIN_W, MAX_W, eps)
+    prm = tg.rebase_center_params(prm, t[3], t[4], 2.5)
+    sel = np.flatnonzero(nmask.any(axis=1) & valid)
+    sub = tg._recon_at(t[1][sel], nat, torch.from_numpy(nidx[sel]),
+                       torch.from_numpy(nmask[sel]))
+    arrays = [(t[0][sel] - sub).numpy(), co[sel], mk[sel], seeds[sel],
+              np.full(len(sel), 2.5, np.float32), prm[sel].numpy()]
+    return arrays, valid[sel]
+
+
+def _plain_against_pallas(arrays, valid, lm_iters, min_ok):
+    """lm_fit_plain against lm_fit_pallas(interpret=True) on the same
+    inputs, with test_lm_fit_plain_matches_jax's tolerances."""
+    px, co, mk, seeds, delta, p0 = arrays
+    pj, ej = lm_fit_pallas(*(jnp.asarray(a) for a in arrays), MIN_W, MAX_W,
+                           lm_iters=lm_iters, interpret=True)
+    pt, et = tl.lm_fit_plain(*(torch.from_numpy(a) for a in arrays),
+                             MIN_W, MAX_W, lm_iters=lm_iters)
+    assert torch.isfinite(pt).all() and torch.isfinite(et).all()
+    nat_j = _natural(pj, ej, seeds, delta)
+    nat_t = _natural(pt.numpy(), et.numpy(), seeds, delta)
+    ok = valid & np.isfinite(nat_j).all(1) & (mk.sum(1) > 10)
+    assert ok.sum() >= min_ok
+    _assert_fits_close(nat_t, nat_j, ok)
+    np.testing.assert_allclose(et.numpy()[ok], np.asarray(ej)[ok],
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("radius,lm_iters", [(4, 8), (6, 8), (5, 30)])
+def test_lm_fit_plain_matches_pallas_at_other_shapes(radius, lm_iters):
+    """The pixel counts of the kernel's other launch shapes (P = 254 at
+    r = 4, 922 at r = 6) and the calibration fit's 30 iterations."""
+    arrays, valid, _, _ = _blocks(radius)
+    _plain_against_pallas(arrays, valid, lm_iters, min_ok=90)
+
+
+def test_lm_fit_plain_matches_pallas_on_a_refit_batch():
+    arrays, valid = _refit_blocks()
+    assert len(valid) >= 20
+    _plain_against_pallas(arrays, valid, 8, min_ok=len(valid) - 2)
+
+
+@pytest.mark.parametrize("p,takes", [(0, False), (1, True), (1024, True),
+                                     (1025, False)])
+def test_lm_fit_cuda_pixel_limits(p, takes):
+    """lm_fit_cuda takes 1..1024 pixels a spot (then refuses a CPU tensor)
+    and refuses any other count before it looks at the device."""
+    n = 3
+    args = (torch.zeros(n, p), torch.zeros(n, p, 3),
+            torch.ones(n, p, dtype=torch.bool), torch.zeros(n, 3),
+            torch.ones(n), torch.zeros(n, 10))
+    with pytest.raises(ValueError, match="CUDA" if takes else "P="):
+        tl.lm_fit_cuda(*args, MIN_W, MAX_W)
+
+
 def test_lm_fit_dispatches_cpu_to_plain(lm_batch):
     im, (px, co, mk, seeds, delta, p0), _ = lm_batch
     args = [torch.from_numpy(a) for a in (px, co, mk, seeds, delta, p0)]
