@@ -17,16 +17,23 @@ Phases, each of which raises (exit code != 0) on a failed check:
    warps; the exact classifier, whose default taps run the bg blur on the
    tensor cores and are held by tolerance, with the one-warp proof of its
    mma fragment layout, two equal
-   launches, a constant stack and a full-range input; the dual x+y blur and
-   the level stencil; the three exact kernels also through their
+   launches, a constant stack and a full-range input; the level stencil;
+   the dual x+y blur, whose default taps also run the bg blur on the
+   tensor cores (fg bit-identical, bg within the JAX tests' tolerance; a
+   7x75x203 stack, a full-range input, two equal launches, a constant
+   stack that counts nothing in the 5^3 stencil; timed at 60x2048x2048 and
+   30x2048x2048); the exact kernels also through their
    bit-identical run-time-radius code on a small stack; the LM fit on round 0's 2048
    spots x 512 pixels x 8 iterations and on a Jacobi refit round's 512
    warm-started spots, then at every launch shape the paths make (slice 1,
    e2e and calibration rounds 0 and refits, P = 254 and 922; seeds at the
-   planted centres), with its registers and resident warps; the cube
-   gather at the 2048 seeds with r = 5 and r = 4, on a thin stack and with
-   origins far outside the stack, where it must equal its plain version
-   exactly), with CUDA-event timings of
+   planted centres), with its registers and resident warps; the gather's
+   two entries, each equal to its plain version exactly: cubes at 2048
+   seeds with r = 5 and r = 4, on a thin stack and with origins far
+   outside the stack, and the fit's in-ball pixels at every launch shape
+   the paths make, on the thin stack and far outside; then
+   ``gather_blocks`` whole, which must launch one gather and make no cube
+   array), with CUDA-event timings of
    kernel and plain version over fresh inputs (and of the gather's one
    advanced-indexing PyTorch call);
 3. slice 1's main path: ``FovPipeline.process_round`` at bench.py's
@@ -61,9 +68,11 @@ The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
 record goes to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds one
 slice-1 round under torch.profiler (device time by kernel, device busy
-share).  ``--only seed_classify``, ``--only seed_pyramid`` and ``--only
-lm_fit`` build that kernel alone and run its checks and timing, nothing
-else.
+share).  ``--only seed_classify``, ``--only seed_pyramid``, ``--only
+lm_fit``, ``--only dual_blur`` and ``--only gather_cubes`` build that
+kernel alone and run its checks and timing, nothing else; ``--only
+gather_blocks`` times ``gaussian_fit.gather_blocks`` whole at every launch
+shape and checks nothing (so that it also times an older tree's).
 """
 
 from __future__ import annotations
@@ -437,18 +446,134 @@ def _seed_pyramid_checks(torch, sk, corrected, k_fg, sig_bg, peaks,
 
 
 def _check_dual_blur(torch, sk, inp) -> dict:
-    """dual_blur against its plain version: both stacks within rtol 2e-5 /
-    atol 2e-2."""
+    """dual_blur against its plain version on one input: fg bit-identical
+    (tap order on both sides), bg within the JAX tests' rtol 2e-5 / atol
+    2e-2 (tests/test_pallas.py) where the taps take the tensor-core path,
+    else bit-identical too."""
     fk, bk = sk.dual_blur_xy_cuda(*inp)
     fp, bp = sk.dual_blur_xy_plain(*inp)
     torch.cuda.synchronize()
-    for name, a, b in (("fg", fk, fp), ("bg", bk, bp)):
-        if not torch.allclose(a, b, rtol=2e-5, atol=2e-2):
-            raise AssertionError(f"dual_blur: {name} differs beyond rtol "
-                                 "2e-5 / atol 2e-2")
-    return {"max_abs_err": max(_max_abs(torch, fk, fp),
-                               _max_abs(torch, bk, bp)),
-            "identical": torch.equal(fk, fp) and torch.equal(bk, bp)}
+    mma = (len(inp[2]), len(inp[3])) == sk.MMA_TAPS
+    out = {"mma": mma, "fg_identical": torch.equal(fk, fp),
+           "bg_identical": torch.equal(bk, bp),
+           "within_tolerance": torch.allclose(bk, bp, rtol=2e-5, atol=2e-2),
+           "max_abs_err": max(_max_abs(torch, fk, fp),
+                              _max_abs(torch, bk, bp)),
+           "bg_max_abs_err": _max_abs(torch, bk, bp)}
+    out["identical"] = out["fg_identical"] and out["bg_identical"]
+    if not out["fg_identical"]:
+        raise AssertionError("dual_blur: fg differs from its plain version "
+                             f"by {_max_abs(torch, fk, fp)}")
+    if not (out["within_tolerance"] if mma else out["bg_identical"]):
+        raise AssertionError(f"dual_blur: bg differs from its plain version "
+                             f"by {out['bg_max_abs_err']} (tensor-core path "
+                             f"{mma})")
+    return out
+
+
+def _dual_blur_checks(torch, sk, corrected, k_fg, k_bg, peaks,
+                      smi: str) -> dict:
+    """Everything held of dual_blur: (1) the default taps, whose bg runs on
+    the tensor cores, on the bench scene's z-passed 60x2048x2048 stacks,
+    on a 7x75x203 stack (narrower than the bg window, a width that is no
+    multiple of 4) and on a full-range input (the stack scaled to reach
+    65 535), each by _check_dual_blur; (2) the run-time-radius kernel (fg
+    sigma 1.5 / bg sigma 5 on a 12x256x256 crop), bit-identical; (3) two
+    launches on one input give equal outputs; (4) a constant 12x256x256
+    stack counts nothing in the dual-blur path's 5^3 stencil
+    (seeding._classify_from_blurs, filt_size 5).  Then ptxas registers and
+    spills, the resident warps per SM, and at each launch shape the paths
+    make (60x2048x2048, the bench scene; 30x2048x2048, the dual-blur and
+    level-stencil paths' stacks) CUDA-event medians of kernel and plain
+    version over three fresh inputs beside the bound."""
+    from imageanalysis3_tpu_torch import _build
+    from imageanalysis3_tpu_torch.ops.filters import gaussian_kernel1d
+    from imageanalysis3_tpu_torch.ops.seeding import _classify_from_blurs
+
+    dev = corrected[0].device
+    bench = [(*sk.z_pass_pair(im, k_fg, k_bg), k_fg, k_bg)
+             for im in corrected]
+    checks = {"bench": _check_dual_blur(torch, sk, bench[0])}
+    odd = corrected[0][20:27, 300:375, 500:703].contiguous()
+    checks["odd"] = _check_dual_blur(
+        torch, sk, (*sk.z_pass_pair(odd, k_fg, k_bg), k_fg, k_bg))
+    gain = 65535.0 / float(corrected[0].max())
+    checks["full_range"] = _check_dual_blur(
+        torch, sk, (*sk.z_pass_pair(corrected[0] * gain, k_fg, k_bg), k_fg,
+                    k_bg))
+    k_fg2, k_bg2 = gaussian_kernel1d(1.5), gaussian_kernel1d(5.0)
+    crop = corrected[0][:12, :256, :256].contiguous()
+    checks["generic"] = _check_dual_blur(
+        torch, sk, (*sk.z_pass_pair(crop, k_fg2, k_bg2), k_fg2, k_bg2))
+    f1, b1 = sk.dual_blur_xy_cuda(*bench[1])
+    f2, b2 = sk.dual_blur_xy_cuda(*bench[1])
+    torch.cuda.synchronize()
+    if not (torch.equal(f1, f2) and torch.equal(b1, b2)):
+        raise AssertionError("dual_blur: two launches on one input differ")
+    del f1, b1, f2, b2
+    flat_shape = (12, 256, 256)
+    flat = torch.full(flat_shape, 800.0, device=dev)
+    ff, bf = sk.dual_blur_xy_cuda(*sk.z_pass_pair(flat, k_fg, k_bg), k_fg,
+                                  k_bg)
+    qf, cf = _classify_from_blurs(ff, bf, TH_SEED, 0, flat_shape[1],
+                                  flat_shape, 5, EDGE, N_LVL)
+    if int(cf.sum()) != 0:
+        raise AssertionError(f"dual_blur: a constant stack counted "
+                             f"{cf.tolist()} in the 5^3 stencil")
+    flat_qualified = int(torch.isfinite(qf).sum())
+    flat_bg_values = int(torch.unique(bf).numel())
+
+    ptxas = _ptxas_report(_build.build_logs.get("dual_blur", ""))
+    occupancy = {}
+    for taps in ((len(k_fg), len(k_bg)), (len(k_fg2), len(k_bg2))):
+        blocks, threads, smem = sk.dual_blur_occupancy_cuda(*taps)
+        occupancy[str(taps)] = {"blocks_per_sm": blocks, "smem_bytes": smem,
+                                "warps_per_sm": blocks * threads // 32}
+
+    shapes = {}
+    for inputs in (bench,
+                   [(*sk.z_pass_pair(im[:DUAL_SHAPE[0]].contiguous(), k_fg,
+                                     k_bg), k_fg, k_bg) for im in corrected]):
+        name = "x".join(str(n) for n in inputs[0][0].shape)
+        ms = _events_ms(torch, sk.dual_blur_xy_cuda, inputs,
+                        queue_ahead=True)
+        plain_ms = _events_ms(torch, sk.dual_blur_xy_plain, inputs,
+                              queue_ahead=False)
+        nvox = float(inputs[0][0].numel())
+        kb, kf = len(k_bg), len(k_fg)
+        # both stacks read once and written once; the x and y passes of
+        # both stacks (k products, k-1 sums each) at the f32 rate
+        bound = _bound(4 * nvox * 4,
+                       nvox * (2 * (2 * kf - 1) + 2 * (2 * kb - 1)), peaks)
+        shapes[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1]}
+    bench_t = shapes["x".join(str(n) for n in bench[0][0].shape)]
+    del bench
+    c = checks
+    print(f"dual_blur: PASS  tensor-core path (taps {sk.MMA_TAPS}): fg "
+          f"bit-identical, bg within rtol 2e-5 / atol 2e-2 of the plain "
+          f"version (max |dbg| {c['bench']['bg_max_abs_err']:.3g} on the "
+          f"bench scene, {c['odd']['bg_max_abs_err']:.3g} on 7x75x203, "
+          f"{c['full_range']['bg_max_abs_err']:.3g} at full range); "
+          f"run-time-radius path bit-identical {c['generic']['identical']}; "
+          f"two launches equal; constant stack counts 0 in the 5^3 stencil "
+          f"({flat_qualified} voxels qualify at level {N_LVL}, "
+          f"{flat_bg_values} distinct bg values)")
+    for line in ptxas:
+        print(f"  ptxas dual_blur: {line}")
+    print("  occupancy dual_blur: " + ", ".join(
+        f"taps {t}: {o['smem_bytes']} B shared memory a block, "
+        f"{o['blocks_per_sm']} blocks, {o['warps_per_sm']} warps per SM"
+        for t, o in occupancy.items()))
+    for name, t in shapes.items():
+        print(f"kernels: dual_blur {name} {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}, {t['ms'] / t['bound_ms']:.2f}x)  [{smi}]")
+    return {**checks["bench"], "checks": checks,
+            "flat_qualified": flat_qualified, "ptxas": ptxas,
+            "occupancy": occupancy, "shapes": shapes, "ms": bench_t["ms"],
+            "plain_ms": bench_t["plain_ms"],
+            "bound": (bench_t["bound_ms"], bench_t["bound_by"])}
 
 
 def _check_level_stencil(torch, sk, inp) -> dict:
@@ -714,16 +839,85 @@ def _e2e_phase(torch, smi: str) -> dict:
                                           for c in launches)}
 
 
-def _gather_checks(torch, stacks, seeds, peaks, smi: str) -> dict:
-    """gather_cubes against its plain version, exactly (max_abs_err 0), on
-    four cases, each over three fresh inputs: the bench scene's 2048 seeds
-    with r = 5 and with r = 4 (the origins handed over unclipped, as
-    seed - r, so the kernel's own clipping runs), a thin stack (its first 6
-    planes, sz = 6 < 2r) and origins drawn far outside the stack (int32
-    extremes included).  Each case reports the kernel's CUDA-event median
-    ms, the plain version's, the one advanced-indexing PyTorch call's on a
-    precomputed index (``im.reshape(-1)[idx]``), and the byte bound (every
-    cube voxel read once and written once)."""
+#: the gather's launch shapes on the paths: (seed capacity, fit radius) of
+#: slice 1, the dual-blur path and calibration (d); the e2e path; the
+#: chromatic beads (c); the bleed fits (b) and their regression crops
+#: (profiles.fit_spot_pair_regressions' crop_radius)
+GATHER_SHAPES = {"slice1": (2048, 5), "e2e": (4096, 5),
+                 "calibration_beads": (512, 5), "bleed_fit": (256, 5),
+                 "bleed_crop": (256, 4), "r6": (2048, 6)}
+
+
+def _gather_blocks_times(torch, stacks, centers, smi: str) -> dict:
+    """``gaussian_fit.gather_blocks`` whole (seed conversion and gather) at
+    every GATHER_SHAPES shape, seeds at the planted centres (the rest of the
+    capacity at -1, as get_seeds pads its table): the CUDA-event median over
+    the three stacks, the gather launches a call makes and the device memory
+    it takes beyond its outputs.  Uses nothing but gather_blocks and the
+    launch counters, so it also times an older tree's gather_blocks."""
+    from imageanalysis3_tpu_torch.ops import (gaussian_fit, kernel_launches,
+                                              reset_kernel_launches)
+
+    dev = stacks[0].device
+    out = {}
+    for name, (cap, radius) in GATHER_SHAPES.items():
+        inputs = [(im, _planted_seeds(torch, centers, cap, dev)[0], radius)
+                  for im in stacks]
+        ms = _events_ms(torch, gaussian_fit.gather_blocks, inputs,
+                        queue_ahead=True)
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = gaussian_fit.gather_blocks(*inputs[0])
+        torch.cuda.synchronize()
+        outputs = sum(t.numel() * t.element_size() for t in res)
+        extra = torch.cuda.max_memory_allocated() - before - outputs
+        out[name] = {"seeds": cap, "radius": radius, "ms": ms,
+                     "launches": kernel_launches()["gather_cubes"],
+                     "output_bytes": outputs, "extra_bytes": int(extra)}
+        del res, inputs
+        print(f"gather_blocks {name}: {cap} seeds, r = {radius}: "
+              f"{ms:.4f} ms whole, {out[name]['launches']} gather launch(es) "
+              f"a call, {extra} B of device memory beyond its "
+              f"{outputs} B of outputs  [{smi}]")
+    return out
+
+
+def _ball_flat_index(torch, gk, shape, seeds, radius):
+    """(N, P) int64 flat indices into the stack of gather_ball's pixels:
+    the index the one PyTorch call ``im.reshape(-1)[idx]`` takes."""
+    sides = gk.cube_sides(shape, radius)
+    offs, _, last = gk._ball_constants(tuple(shape), radius, seeds.device)
+    b = gk._to_int32(seeds).to(torch.int64)
+    pos = gk._wrap_int32(b[:, None, :] + offs[None])
+    origin = gk.clip_origins(gk._wrap_int32(b - radius), shape,
+                             sides).to(torch.int64)
+    rel = torch.minimum(gk._wrap_int32(pos - origin[:, None]).clamp_min(0),
+                        last)
+    v = origin[:, None] + rel
+    return (v[..., 0] * shape[1] + v[..., 1]) * shape[2] + v[..., 2]
+
+
+def _gather_checks(torch, stacks, centers, peaks, smi: str) -> dict:
+    """Both gather entries against their plain versions, exactly
+    (torch.equal, max_abs_err 0), each case over three fresh inputs, seeds
+    at the planted centres (the rest of the capacity at -1, as get_seeds
+    pads its table).  The cube entry: 2048 seeds with r = 5 and r = 4 (the
+    origins handed over unclipped, as seed - r, so the kernel's own
+    clipping runs), a thin stack (the first 6 planes, sz = 6 < 2r) and
+    origins drawn far outside the stack (int32 extremes included).  The
+    ball entry (pixels, coords and mask against the plain cube-then-pack):
+    every GATHER_SHAPES shape with f32 seeds, the thin stack, f32 seeds
+    with non-finite and huge rows (converted as XLA converts them), and
+    int32 positions far outside (int32 extremes included, where the sums
+    wrap).  Each case reports the
+    kernel's CUDA-event median ms, the plain version's, the one PyTorch
+    call's on a precomputed flat index (``im.reshape(-1)[idx]``) and the
+    byte bound (every value read once and written once).  Then
+    gather_blocks whole at every shape (_gather_blocks_times), which must
+    make one gather launch a call and no cube array."""
+    from imageanalysis3_tpu_torch import _build
     from imageanalysis3_tpu_torch.ops import gather_kernel as gk
 
     dev = stacks[0].device
@@ -736,46 +930,105 @@ def _gather_checks(torch, stacks, seeds, peaks, smi: str) -> dict:
         big[: n // 4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, -7])
         return big.to(torch.int32).to(dev)
 
+    def seeds(cap):
+        return [_planted_seeds(torch, centers, cap, dev)[0] for _ in stacks]
+
+    def nonfinite(s):
+        s = s.clone()
+        s[:6] = torch.tensor(
+            [[float("nan"), 3.0, 3.0], [float("inf"), -float("inf"), 2.0],
+             [1e10, -1e10, 5.0], [float("nan")] * 3, [2147483520.0, -3.0, 5.0],
+             [-2147483520.0, 5.0, 2147483520.0]])
+        return s
+
     thin = [im[:6].contiguous() for im in stacks]
-    cases = {
-        "r5": [(im, (s - 5).to(torch.int32).contiguous(),
-                gk.cube_sides(im.shape, 5)) for im, s in zip(stacks, seeds)],
-        "r4": [(im, (s - 4).to(torch.int32).contiguous(),
-                gk.cube_sides(im.shape, 4)) for im, s in zip(stacks, seeds)],
-        "thin_r5": [(im, (s - 5).to(torch.int32).contiguous(),
-                     gk.cube_sides(im.shape, 5)) for im, s in zip(thin, seeds)],
-        "outside_r5": [(im, outside(s.shape[0]), gk.cube_sides(im.shape, 5))
-                       for im, s in zip(stacks, seeds)],
+    s2048 = seeds(2048)
+    cube_cases = {
+        "r5": [(im, (s - 5).to(torch.int32), gk.cube_sides(im.shape, 5))
+               for im, s in zip(stacks, s2048)],
+        "r4": [(im, (s - 4).to(torch.int32), gk.cube_sides(im.shape, 4))
+               for im, s in zip(stacks, s2048)],
+        "thin_r5": [(im, (s - 5).to(torch.int32), gk.cube_sides(im.shape, 5))
+                    for im, s in zip(thin, s2048)],
+        "outside_r5": [(im, outside(2048), gk.cube_sides(im.shape, 5))
+                       for im in stacks],
     }
-    out = {}
-    for name, inputs in cases.items():
-        err = 0.0
+    # f32 seeds, as gather_blocks hands them over; int32 ones far outside
+    ball_cases = {name: [(im, s, r) for im, s in zip(stacks, seeds(cap))]
+                  for name, (cap, r) in GATHER_SHAPES.items()}
+    ball_cases["thin_r5"] = [(im, s, 5) for im, s in zip(thin, s2048)]
+    ball_cases["nonfinite_r5"] = [(im, nonfinite(s), 5)
+                                  for im, s in zip(stacks, s2048)]
+    ball_cases["outside_r5"] = [(im, outside(2048), 5) for im in stacks]
+
+    def report(entry, name, inputs, kernel, plain, idx_of, nbytes):
         for inp in inputs:
-            got = gk.gather_cubes_cuda(*inp)
-            want = gk.gather_cubes_plain(*inp)
+            got, want = kernel(*inp), plain(*inp)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"gather_cubes {name}: differs from its "
-                                     f"plain version by "
-                                     f"{_max_abs(torch, got, want)}")
-            err = max(err, _max_abs(torch, got, want))
-        ms = _events_ms(torch, gk.gather_cubes_cuda, inputs, queue_ahead=True)
-        plain_ms = _events_ms(torch, gk.gather_cubes_plain, inputs,
-                              queue_ahead=False)
-        lib_in = [(im, gk.cube_index(im.shape, o, sd)) for im, o, sd in inputs]
-        lib_ms = _events_ms(torch, lambda im, idx: im.reshape(-1)[idx], lib_in,
-                            queue_ahead=True)
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"{entry} {name}: differs from its plain version "
+                        f"(max |d| {_max_abs(torch, g.float(), w.float())})")
+        ms = _events_ms(torch, kernel, inputs, queue_ahead=True)
+        plain_ms = _events_ms(torch, plain, inputs, queue_ahead=False)
+        lib_in = [(inp[0], idx_of(*inp)) for inp in inputs]
+        lib_ms = _events_ms(torch, lambda im, idx: im.reshape(-1)[idx],
+                            lib_in, queue_ahead=True)
+        bound = _bound(nbytes, 0.0, peaks)
+        rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound[0],
+               "bound_by": bound[1]}
+        print(f"{entry} {name}: PASS  equal to its plain version; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, im.reshape(-1)[idx] "
+              f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({ms / bound[0]:.2f}x)  [{smi}]")
+        return rec
+
+    cubes, balls = {}, {}
+    for name, inputs in cube_cases.items():
         n, sides = inputs[0][1].shape[0], inputs[0][2]
         vol = sides[0] * sides[1] * sides[2]
-        bound = _bound(2 * 4 * n * vol + 12 * n, 0.0, peaks)
-        out[name] = {"cubes": n, "sides": list(sides), "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound[0], "bound_by": bound[1]}
-        print(f"gather_cubes {name}: PASS  {n} cubes of {sides}, max_abs_err "
-              f"{err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"im.reshape(-1)[idx] {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"by {bound[1]}  [{smi}]")
-    return out
+        cubes[name] = {"cubes": n, "sides": list(sides), **report(
+            "gather_cubes (cubes)", f"{name}, {n} cubes of {sides}", inputs,
+            gk.gather_cubes_cuda, gk.gather_cubes_plain,
+            lambda im, o, sd: gk.cube_index(im.shape, o, sd),
+            2 * 4 * n * vol + 12 * n)}
+    for name, inputs in ball_cases.items():
+        n, r = inputs[0][1].shape[0], inputs[0][2]
+        p = len(gk.ball_offsets(r))
+        # pixels read once; base and offsets read; pixels, coords and the
+        # mask written once
+        balls[name] = {"seeds": n, "radius": r, "px": p, **report(
+            "gather_cubes (ball)", f"{name}, {n} seeds x {p} px (r = {r})",
+            inputs, gk.gather_ball_cuda, gk.gather_ball_plain,
+            lambda im, b, rr: _ball_flat_index(torch, gk, im.shape, b, rr),
+            n * p * (4 + 4 + 12 + 1) + 12 * (n + p))}
+    whole = _gather_blocks_times(torch, stacks, centers, smi)
+    for name, w in whole.items():
+        cap, r = GATHER_SHAPES[name]
+        sides = gk.cube_sides(stacks[0].shape, r)
+        cube_bytes = 4 * cap * sides[0] * sides[1] * sides[2]
+        if w["launches"] != 1 or w["extra_bytes"] >= cube_bytes:
+            raise AssertionError(
+                f"gather_blocks {name}: {w['launches']} gather launches and "
+                f"{w['extra_bytes']} B beyond its outputs (a cube array "
+                f"takes {cube_bytes} B)")
+    ptxas = _ptxas_report(_build.build_logs.get("gather_cubes", ""))
+    for line in ptxas:
+        print(f"  ptxas gather_cubes: {line}")
+    occupancy = {}
+    for entry in ("cubes", "ball"):
+        blocks, threads = gk.gather_occupancy_cuda(entry == "ball")
+        occupancy[entry] = {"blocks_per_sm": blocks,
+                            "warps_per_sm": blocks * threads // 32}
+    print("  occupancy gather_cubes: " + ", ".join(
+        f"{e} entry: {o['blocks_per_sm']} blocks, {o['warps_per_sm']} warps "
+        f"per SM" for e, o in occupancy.items())
+        + f"  [{smi}]")
+    return {"cubes": cubes, "ball": balls, "gather_blocks": whole,
+            "ptxas": ptxas, "occupancy": occupancy}
 
 
 # ---- the LM fit at every launch shape the paths make ------------------------
@@ -1314,10 +1567,13 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one round (device time by kernel)")
     ap.add_argument("--only", choices=["seed_classify", "seed_pyramid",
-                                       "lm_fit"],
+                                       "lm_fit", "dual_blur", "gather_cubes",
+                                       "gather_blocks"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
-                         "paths, no final ok line)")
+                         "paths, no final ok line); gather_blocks times "
+                         "gaussian_fit.gather_blocks whole and checks "
+                         "nothing")
     args = ap.parse_args(argv)
 
     import torch
@@ -1351,7 +1607,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"peaks used for bounds: {peaks[2]}")
-    build_s = _build.build([args.only] if args.only else _build.KERNELS)
+    only_kernel = {"gather_blocks": "gather_cubes"}.get(args.only, args.only)
+    build_s = _build.build([only_kernel] if args.only else _build.KERNELS)
     print(f"kernel build: {build_s:.2f} s")
     for name, log in _build.build_logs.items():
         for line in _ptxas_report(log):
@@ -1407,6 +1664,16 @@ def main(argv=None) -> int:
         _lm_fit_report(torch, smi)
         _lm_fit_shapes(torch, corrected, truth["centers"], peaks, smi)
         return 0
+    if args.only == "dual_blur":
+        _dual_blur_checks(torch, seed_kernels, corrected, k_fg,
+                          gaussian_kernel1d(sig_bg), peaks, smi)
+        return 0
+    if args.only == "gather_cubes":
+        _gather_checks(torch, corrected, truth["centers"], peaks, smi)
+        return 0
+    if args.only == "gather_blocks":
+        _gather_blocks_times(torch, corrected, truth["centers"], smi)
+        return 0
     pyr = _seed_pyramid_checks(torch, seed_kernels, corrected, k_fg, sig_bg,
                                peaks, smi)
     pyr_err, pyr_ms, pyr_plain_ms = pyr["max_abs_err"], pyr["ms"], pyr["plain_ms"]
@@ -1414,48 +1681,31 @@ def main(argv=None) -> int:
     nvox = float(np.prod(shape))
 
     # the exact classifier's kernels on the same corrected stacks: the
-    # z-passed pair feeds seed_classify and dual_blur, the blurred pair
-    # level_stencil; the generic (run-time radius) code paths on a small
-    # stack with fg sigma 1.5 / bg sigma 5
+    # z-passed pair feeds seed_classify and dual_blur, its plain blurs
+    # level_stencil
     k_bg = gaussian_kernel1d(sig_bg)
     sc = _seed_classify_checks(torch, seed_kernels, corrected, k_fg, k_bg,
                                peaks, smi)
     cls, cls_gen, zpass = sc["cls"], sc["cls_gen"], sc.pop("zpass")
     cls_ms, cls_plain_ms, cls_bound = sc["ms"], sc["plain_ms"], sc["bound"]
-    k_fg2, k_bg2 = gaussian_kernel1d(1.5), gaussian_kernel1d(5.0)
-    zs = seed_kernels.z_pass_pair(corrected[0][:12, :256, :256].contiguous(),
-                                  k_fg2, k_bg2)
-    blur_in = [(fgz, bgz, k_fg, k_bg) for fgz, bgz in zpass]
-    blur = _check_dual_blur(torch, seed_kernels, blur_in[0])
-    blur_gen = _check_dual_blur(torch, seed_kernels, (*zs, k_fg2, k_bg2))
-    lvl_in = [(*seed_kernels.dual_blur_xy_plain(*b), TH_SEED, N_LVL, EDGE)
-              for b in blur_in]
+    lvl_in = [(*seed_kernels.dual_blur_xy_plain(fgz, bgz, k_fg, k_bg),
+               TH_SEED, N_LVL, EDGE) for fgz, bgz in zpass]
+    del zpass
     lvl = _check_level_stencil(torch, seed_kernels, lvl_in[0])
-    blur_ms = _events_ms(torch, seed_kernels.dual_blur_xy_cuda, blur_in,
-                         queue_ahead=True)
-    blur_plain_ms = _events_ms(torch, seed_kernels.dual_blur_xy_plain,
-                               blur_in, queue_ahead=False)
     lvl_ms = _events_ms(torch, seed_kernels.level_stencil_cuda, lvl_in,
                         queue_ahead=True)
     lvl_plain_ms = _events_ms(torch, seed_kernels.level_stencil_plain,
                               lvl_in, queue_ahead=False)
-    kb, kf = len(k_bg), len(k_fg)
-    # the x and y passes of both stacks (k products, k-1 sums each)
-    blur_bound = _bound(4 * nvox * 4,
-                        nvox * (2 * (2 * kf - 1) + 2 * (2 * kb - 1)), peaks)
+    del lvl_in
     # 26 maxima, 26 minima, the difference, two compares and the level's
     # 5 (divide, subtract, multiply, ceil, clip) on every voxel
     lvl_bound = _bound(nvox * (4 + 4 + 4 + 1) + 4 * N_LVL, nvox * 60, peaks)
-    print(f"dual_blur: PASS  max |d| {blur['max_abs_err']:.3g}, bit-identical "
-          f"{blur['identical']}; generic radius path bit-identical "
-          f"{blur_gen['identical']}")
     print(f"level_stencil: PASS  counts {lvl['counts']}, level identical, "
           f"max |ddiff| {lvl['max_abs_err']:.3g}")
-    print(f"kernels: dual_blur {blur_ms:.4f} ms (plain {blur_plain_ms:.4f} ms, bound "
-          f"{blur_bound[0]:.4f} ms by {blur_bound[1]}); level_stencil "
-          f"{lvl_ms:.4f} ms (plain {lvl_plain_ms:.4f} ms, bound "
-          f"{lvl_bound[0]:.4f} ms by {lvl_bound[1]})  [{smi}]")
-    del zpass, blur_in, lvl_in, zs
+    print(f"kernels: level_stencil {lvl_ms:.4f} ms (plain {lvl_plain_ms:.4f} "
+          f"ms, bound {lvl_bound[0]:.4f} ms by {lvl_bound[1]})  [{smi}]")
+    blur = _dual_blur_checks(torch, seed_kernels, corrected, k_fg, k_bg,
+                             peaks, smi)
 
     # LM at the main path's round-0 shapes: blocks around the seeds
     fcfg = cfg.fit
@@ -1497,10 +1747,7 @@ def main(argv=None) -> int:
           f"{lm_bound[1]})  [{smi}]")
     lm_report = _lm_fit_report(torch, smi)
     lm_shapes = _lm_fit_shapes(torch, corrected, truth["centers"], peaks, smi)
-    gather = _gather_checks(torch, corrected,
-                            [st["lm_in"][3].to(torch.int32)
-                             for st in lm_sets],
-                            peaks, smi)
+    gather = _gather_checks(torch, corrected, truth["centers"], peaks, smi)
     del pp, ep, lm_sets, lm_in, jac_in, corrected
 
     # ---- 3. main path ----------------------------------------------------
@@ -1601,9 +1848,10 @@ def main(argv=None) -> int:
          "source": "imageanalysis3_tpu_torch/csrc/dual_blur.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:280",
          "launches": sum(c["dual_blur"] for c in dual["launches_per_round"]),
-         "max_abs_err": blur["max_abs_err"], "ms": blur_ms,
-         "plain_ms": blur_plain_ms, "bound_ms": blur_bound[0],
-         "bound_by": blur_bound[1], "library_ms": None},
+         "max_abs_err": blur["max_abs_err"], "ms": blur["ms"],
+         "plain_ms": blur["plain_ms"], "bound_ms": blur["bound"][0],
+         "bound_by": blur["bound"][1], "library_ms": None,
+         "shapes": blur["shapes"]},
         {"name": "level_stencil", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/level_stencil.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:120",
@@ -1614,12 +1862,15 @@ def main(argv=None) -> int:
         {"name": "gather_cubes", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/gather_cubes.cu",
          "replaces": "scripts/ab_gather2.py:62",
-         "launches": calib["total_launches"]["gather_cubes"],
-         "max_abs_err": max(c["max_abs_err"] for c in gather.values()),
-         "ms": gather["r5"]["ms"], "plain_ms": gather["r5"]["plain_ms"],
-         "bound_ms": gather["r5"]["bound_ms"],
-         "bound_by": gather["r5"]["bound_by"],
-         "library_ms": gather["r5"]["library_ms"]},
+         "launches": total["gather_cubes"],
+         "max_abs_err": max(c["max_abs_err"]
+                            for entry in ("cubes", "ball")
+                            for c in gather[entry].values()),
+         **{k: gather["ball"]["slice1"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms")},
+         "entries": {"ball": gather["ball"], "cubes": gather["cubes"],
+                     "gather_blocks": gather["gather_blocks"]}},
     ]
     record.update(
         shape=shape, n_spots=len(truth["centers"]), kernels=kernels,
@@ -1636,10 +1887,16 @@ def main(argv=None) -> int:
                              "atol 0.05, counts within 2), not bit for bit; "
                              "the run-time-radius path is bit-identical",
             "dual_blur": "max |blur kernel - plain| over both stacks "
-                         "(intensity units)",
+                         "(intensity units); fg bit-identical; the default "
+                         "taps' bg runs as split-TF32 products on the "
+                         "tensor cores and is held by rtol 2e-5 / atol "
+                         "2e-2, the run-time-radius path bit for bit",
             "level_stencil": "max |diff kernel - plain| (intensity units)",
-            "gather_cubes": "max |cube kernel - plain| over the four cases "
-                            "(intensity units)"},
+            "gather_cubes": "max |kernel - plain| over every case of both "
+                            "entries (cubes; ball pixels, coords, mask); "
+                            "both are held equal (torch.equal); ms, plain "
+                            "and library ms and the bound are the ball "
+                            "entry's at slice 1's 2048 seeds, r = 5"},
         kernel_checks={"seed_pyramid": pyr, "seed_classify": cls,
                        "seed_classify_generic_radius": cls_gen,
                        "seed_classify_full_range": sc["cls_full"],
@@ -1647,7 +1904,7 @@ def main(argv=None) -> int:
                        "seed_classify_mma_layout_err": sc["mma_layout_err"],
                        "seed_classify_flat_qualified": sc["flat_qualified"],
                        "seed_classify_byte_bound_ms": sc["byte_bound_ms"],
-                       "dual_blur": blur, "dual_blur_generic_radius": blur_gen,
+                       "dual_blur": blur,
                        "level_stencil": lvl, "gather_cubes": gather,
                        "lm_fit_shapes": lm_shapes, "lm_fit_build": lm_report},
         seconds_per_stack=sec, round_seconds=times, stage_seconds=stages,

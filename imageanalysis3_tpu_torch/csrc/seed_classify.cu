@@ -25,7 +25,8 @@
 // rounded to 10 mantissa bits, to nearest, ties away; lo = v - hi rounded
 // the same: cvt.rna.tf32.f32's results) and three mma.sync.m16n8k8
 // products lo*hi + hi*lo + hi*hi summed in f32 (lo*lo, <= 2^-22 relative,
-// is dropped, as the TPU kernel's dot3 drops it).  So the default path
+// is dropped, as the TPU kernel's dot3 drops it; band_mma.cuh, shared with
+// dual_blur.cu, holds this product and the window copies).  So the default path
 // agrees with the plain version within the JAX tests' tolerances
 // (qualification on > 1 - 1e-5 of voxels, qdiff within rtol 1e-4 / atol
 // 0.05, counts within 2), not bit for bit: at 60x2048x2048 a handful of
@@ -76,6 +77,7 @@
 // and the registers (128) leave one block per SM.  The histogram is a
 // shared-memory one added to `counts` with atomics at the end.
 
+#include "band_mma.cuh"
 #include "seed_common.cuh"
 
 namespace {
@@ -84,31 +86,18 @@ namespace {
 constexpr int RX = 32, RY = 128;
 constexpr int TX = RX - 2, TY = RY - 2;
 constexpr int NT = 512;
-constexpr int NW = NT / 32;
 constexpr int M = (TX * TY + NT - 1) / NT;   // voxels a thread owns
 constexpr int PS = RY + 6;   // row stride of the blurred plane: even, for
                              // float2 stores, and 6 (mod 32), so that the
                              // fg y pass's row-strided stores spread
 
-// the tap counts whose bg passes run on the tensor cores
+// the tap counts whose bg passes run on the tensor cores, and their tiling
+// (band_mma.cuh BandTile)
 constexpr int KF_MMA = 7, KB_MMA = 61;
-constexpr int XCH = (16 + KB_MMA - 1 + 7) / 8;   // band chunks of a 16-row tile
-constexpr int YCH = (8 + KB_MMA - 1 + 7) / 8;    // of an 8-column tile
-constexpr int MT = RX / 16;                      // row tiles
-constexpr int SR = 16 * (MT - 1) + 8 * XCH;      // raw rows the x pass reads
-constexpr int SCM = (RY + KB_MMA - 1 + 7) / 8 * 8;   // raw / x-passed columns
-constexpr int SS = SCM + 8;   // raw row stride, = 8 (mod 32)
-constexpr int SC4 = (SCM + 3 + 3) / 4;   // float4 per raw row, any shift
-constexpr int XS = SCM + 4;   // x-passed row stride, = 4 (mod 8)
-constexpr int NXT = SCM / 8;  // column tiles of the x pass
-constexpr int NYT = RY / 8;   // column tiles of the y pass
-constexpr int NXW = NXT * MT / NW;   // x pass: column tiles per warp
-constexpr int NYW = NYT * MT / NW;   // y pass: neighbouring tiles per warp
-constexpr int BAND = XCH * 32 * 4;   // floats of the band table
-static_assert(4 * SC4 <= SS && SS % 32 == 8 && XS % 8 == 4 && NXT * MT % NW == 0 &&
-                  NYT * MT % NW == 0 && 8 * (NYT - 1 + YCH) <= SCM &&
-                  PS % 2 == 0 && YCH <= XCH,
-              "mma tiling");
+using BG = ia3::BandTile<RX, RY, KB_MMA, NT>;
+constexpr int SR = BG::SR, SCM = BG::SCM, SS = BG::SS, SC4 = BG::SC4;
+constexpr int XS = BG::XS, BAND = BG::BAND;
+static_assert(PS % 2 == 0, "float2 stores of the blurred plane");
 // the fg's raw window and blocking (seed_common.cuh blur_staged_x, blur_staged_y)
 constexpr int FR = RX + KF_MMA - 1, FC = RY + KF_MMA - 1;
 constexpr int FMBX = 4, FMBY = 8;
@@ -216,203 +205,7 @@ __global__ void __launch_bounds__(NT, 1)
     if (hist[i]) atomicAdd(&a.counts[i], hist[i]);
 }
 
-// ---- the default taps: bg on the tensor cores ---------------------------
-// mma.sync.m16n8k8 fragments (g = lane >> 2, t = lane & 3): A (16x8, row)
-// a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]; B (8x8,
-// col) b0 = B[t][g], b1 = B[t+4][g]; C/D (16x8) c0 = C[g][2t],
-// c1 = C[g][2t+1], c2 = C[g+8][2t], c3 = C[g+8][2t+1].
-
-struct Split {
-  uint32_t hi, lo;
-};
-
-// v rounded to TF32's 10 mantissa bits, to nearest, ties away from zero:
-// cvt.rna.tf32.f32's result for every finite v, in two integer
-// instructions (the conversion instruction runs at a lower rate and was
-// measured slower here)
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = hi + lo up to 2^-22 relative; the subtraction is exact
-__device__ __forceinline__ Split split(float v) {
-  Split s;
-  s.hi = to_tf32(v);
-  s.lo = to_tf32(__fsub_rn(v, __uint_as_float(s.hi)));
-  return s;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// d += a b with both operands split: lo*hi, hi*lo, then hi*hi
-__device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4],
-                                     const Split (&b)[2]) {
-  mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
-  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
-  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
-}
-
-// The band table, band[c][lane] = (d.hi, e.hi, d.lo, e.lo) with
-// d = t[8c + t - g], e = t[8c + t - g + 4] (0 outside the taps).  The band
-// is Toeplitz, so these two values are every fragment: the x pass's A
-// operand A[i][k] = t[8c + k - i] has (a0, a1, a2, a3) = (d_c, d_{c-1}, e_c,
-// e_{c-1}) and the y pass's B operand B[k][n] = t[8c + k - n] has
-// (b0, b1) = (d_c, e_c); d and e of chunk -1 are 0.
-struct BandPair {
-  Split d, e;
-};
-__device__ __forceinline__ BandPair band_pair(const float4* band, int c,
-                                              int lane) {
-  const float4 f = band[c * 32 + lane];
-  return {{__float_as_uint(f.x), __float_as_uint(f.z)},
-          {__float_as_uint(f.y), __float_as_uint(f.w)}};
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// Start the copy of one plane's ROWS x COLS raw window into S (row stride
-// STRIDE): element (i, j) comes from plane[row_off[i] + col_off[j]], the
-// offsets reflected at the plane's edges once per block (window_offsets).
-// Warps take rows, lanes take columns.  No barrier: the caller commits,
-// waits and synchronises.
-template <int ROWS, int COLS, int STRIDE>
-__device__ __forceinline__ void prefetch_window(
-    const float* __restrict__ plane, const int* row_off, const int* col_off,
-    float* S) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < ROWS; i += NW) {
-    const float* row = plane + row_off[i];
-    float* dst = S + i * STRIDE;
-#pragma unroll
-    for (int j = lane; j < COLS; j += 32) cp_async4(dst + j, row + col_off[j]);
-  }
-}
-
-// prefetch_window for a window that lies inside the plane with a 16-byte
-// aligned first element (first: the plane's element under S[0]) and row
-// pitch: ROWS rows of COLS4 float4
-template <int ROWS, int COLS4, int STRIDE>
-__device__ __forceinline__ void prefetch_window16(
-    const float* __restrict__ first, int ny, float* S) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < ROWS; i += NW) {
-    const float* row = first + (size_t)i * ny;
-    float* dst = S + i * STRIDE;
-#pragma unroll
-    for (int k = lane; k < COLS4; k += 32) cp_async16(dst + 4 * k, row + 4 * k);
-  }
-}
-
-// row_off[i] = reflect(x_lo + i) * ny, col_off[j] = reflect(y_lo + j)
-__device__ __forceinline__ void window_offsets(int rows, int cols, int x_lo,
-                                               int y_lo, int nx, int ny,
-                                               int* row_off, int* col_off) {
-  for (int i = threadIdx.x; i < rows; i += NT)
-    row_off[i] = ia3::reflect_index(x_lo + i, nx) * ny;
-  for (int j = threadIdx.x; j < cols; j += NT)
-    col_off[j] = ia3::reflect_index(y_lo + j, ny);
-}
-
-// The 61-tap bg blur of the RX x RY window whose SR x SCM raw window lies in
-// S, into P (row stride PS; may overlap S), as two banded split-TF32
-// products through the x-passed rows XP.  Starts with S visible to the
-// block, ends synchronised.
-template <class BesideY>
-__device__ __forceinline__ void blur_bg_mma(const float* S, float* XP,
-                                            float* P, const float4* band,
-                                            BesideY beside_y) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = warp % MT;
-
-  // x pass: XP[i][j] = sum_u t[u] S[i + u][j].  A warp takes row tile mi
-  // and NXW column tiles; each band chunk's fragments serve all of them.
-  {
-    const int n0 = warp / MT * NXW;
-    float acc[NXW][4] = {};
-    const float* col = S + (16 * mi + t) * SS + n0 * 8 + g;
-    BandPair prev = {};
-#pragma unroll
-    for (int c = 0; c < XCH; ++c) {
-      const BandPair cur = band_pair(band, c, lane);
-      const Split a[4] = {cur.d, prev.d, cur.e, prev.e};
-#pragma unroll
-      for (int j = 0; j < NXW; ++j) {
-        const Split b[2] = {split(col[8 * c * SS + 8 * j]),
-                            split(col[(8 * c + 4) * SS + 8 * j])};
-        mma3(acc[j], a, b);
-      }
-      prev = cur;
-    }
-#pragma unroll
-    for (int j = 0; j < NXW; ++j) {
-      float* out = XP + (16 * mi + g) * XS + (n0 + j) * 8 + 2 * t;
-      *reinterpret_cast<float2*>(out) = make_float2(acc[j][0], acc[j][1]);
-      *reinterpret_cast<float2*>(out + 8 * XS) =
-          make_float2(acc[j][2], acc[j][3]);
-    }
-  }
-  __syncthreads();
-
-  // y pass: P[i][j] = sum_u t[u] XP[i][j + u].  A warp takes row tile mi
-  // and NYW neighbouring column tiles, so the data's column chunk q is
-  // split once and serves band chunk q - jj of each tile jj.
-  {
-    const int nb = warp / MT * NYW;
-    float acc[NYW][4] = {};
-    const float* row = XP + (16 * mi + g) * XS + nb * 8 + t;
-    BandPair bp[NYW] = {};   // bp[jj]: the band chunk q - jj
-#pragma unroll
-    for (int q = 0; q < NYW - 1 + YCH; ++q) {
-      const Split a[4] = {split(row[8 * q]), split(row[8 * XS + 8 * q]),
-                          split(row[8 * q + 4]),
-                          split(row[8 * XS + 8 * q + 4])};
-#pragma unroll
-      for (int jj = NYW - 1; jj > 0; --jj) bp[jj] = bp[jj - 1];
-      if (q < YCH) bp[0] = band_pair(band, q, lane);
-#pragma unroll
-      for (int jj = 0; jj < NYW; ++jj) {
-        const int c = q - jj;
-        if (c < 0 || c >= YCH) continue;
-        const Split b[2] = {bp[jj].d, bp[jj].e};
-        mma3(acc[jj], a, b);
-      }
-    }
-    beside_y();
-#pragma unroll
-    for (int jj = 0; jj < NYW; ++jj) {
-      float* out = P + (16 * mi + g) * PS + (nb + jj) * 8 + 2 * t;
-      *reinterpret_cast<float2*>(out) = make_float2(acc[jj][0], acc[jj][1]);
-      *reinterpret_cast<float2*>(out + 8 * PS) =
-          make_float2(acc[jj][2], acc[jj][3]);
-    }
-  }
-  __syncthreads();
-}
+// ---- the default taps: bg on the tensor cores (band_mma.cuh) ----------
 
 // Max (MAX) or min over the in-range 3x3 xy neighbourhoods of the SM_ROWS
 // voxels a thread owns, rows i0 .. i0 + SM_ROWS - 1 of tile column j (plane
@@ -470,21 +263,21 @@ __global__ void __launch_bounds__(NT, 1)
   const int xb = x0 - 1 - RB, yb = y0 - 1 - RB, sh = yb & 3;
   const bool wide = a.aligned16 && xb >= 0 && xb + SR <= nx && yb - sh >= 0 &&
                     yb - sh + 4 * SC4 <= ny;
-  window_offsets(SR, SCM, xb, yb, nx, ny, off_b, off_b + SR);
-  window_offsets(FR, FC, x0 - 1 - RF, y0 - 1 - RF, nx, ny, off_f,
-                 off_f + FR);
+  ia3::window_offsets<NT>(SR, SCM, xb, yb, nx, ny, off_b, off_b + SR);
+  ia3::window_offsets<NT>(FR, FC, x0 - 1 - RF, y0 - 1 - RF, nx, ny, off_f,
+                          off_f + FR);
   __syncthreads();
   auto prefetch = [&](int z) {
     float* dst = SB + (z & 1) * SR * SS;
     if (wide)
-      prefetch_window16<SR, SC4, SS>(
+      ia3::prefetch_window16<NT, SR, SC4, SS>(
           a.bgz + (size_t)z * plane + (size_t)xb * ny + (yb - sh), ny, dst);
     else
-      prefetch_window<SR, SCM, SS>(a.bgz + (size_t)z * plane, off_b,
+      ia3::prefetch_window<NT, SR, SCM, SS>(a.bgz + (size_t)z * plane, off_b,
                                    off_b + SR, dst + sh);
-    prefetch_window<FR, FC, FC>(a.fgz + (size_t)z * plane, off_f, off_f + FR,
-                                SF + (z & 1) * SFW);
-    cp_async_commit();
+    ia3::prefetch_window<NT, FR, FC, FC>(a.fgz + (size_t)z * plane, off_f,
+                                         off_f + FR, SF + (z & 1) * SFW);
+    ia3::cp_async_commit();
   };
 
   // the strip of the tile this thread owns
@@ -507,15 +300,18 @@ __global__ void __launch_bounds__(NT, 1)
     const float* SFz = SF + (z & 1) * SFW;
     // plane z's windows have landed, and the other buffers, the bg one of
     // which held plane z - 1's blurred planes, are free for plane z + 1's
-    cp_async_wait_all();
+    ia3::cp_async_wait_all();
     __syncthreads();
     if (z + 1 < a.nz) prefetch(z + 1);
     // the fg's x pass, on the CUDA cores, runs beside the bg's y pass
-    blur_bg_mma(S + sh, XP, PB, band, [&] {
+    ia3::blur_bg_mma<BG, PS>(S + sh, XP, PB, band, [&] {
       ia3::blur_staged_x<KF_MMA, RX, RY, FMBX, NT>(a.taps_fg, SFz, XF);
     });
     ia3::blur_staged_y<KF_MMA, RX, RY, FMBY, NT>(
-        a.taps_fg, XF, [&](int i, int jj, float v) { PF[i * PS + jj] = v; });
+        a.taps_fg, XF, [&](int i, int j0, const float (&v)[FMBY]) {
+#pragma unroll
+          for (int m = 0; m < FMBY; ++m) PF[i * PS + j0 + m] = v[m];
+        });
     __syncthreads();
     if (owner) {
       float mn3[SM_ROWS], bgc[SM_ROWS], mx3[SM_ROWS], fgc[SM_ROWS];
@@ -562,11 +358,13 @@ int launch(Kernel kernel, const Args& a, size_t smem, dim3 grid,
 __global__ void mma_selftest_kernel(const float* a, const float* b,
                                     float* d) {
   const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
-  const Split fa[4] = {split(a[g * 8 + t]), split(a[(g + 8) * 8 + t]),
-                       split(a[g * 8 + t + 4]), split(a[(g + 8) * 8 + t + 4])};
-  const Split fb[2] = {split(b[t * 8 + g]), split(b[(t + 4) * 8 + g])};
+  using ia3::split;
+  const ia3::Split fa[4] = {split(a[g * 8 + t]), split(a[(g + 8) * 8 + t]),
+                            split(a[g * 8 + t + 4]),
+                            split(a[(g + 8) * 8 + t + 4])};
+  const ia3::Split fb[2] = {split(b[t * 8 + g]), split(b[(t + 4) * 8 + g])};
   float acc[4] = {};
-  mma3(acc, fa, fb);
+  ia3::mma3(acc, fa, fb);
   d[g * 8 + 2 * t] = acc[0];
   d[g * 8 + 2 * t + 1] = acc[1];
   d[(g + 8) * 8 + 2 * t] = acc[2];
@@ -577,11 +375,11 @@ __global__ void mma_selftest_kernel(const float* a, const float* b,
 // accumulators; out[global warp] keeps the products alive
 __global__ void __launch_bounds__(NT, 1)
     mma_rate_kernel(int iters, float* out) {
-  const uint32_t a = to_tf32(1.0f + threadIdx.x), b = to_tf32(0.5f);
+  const uint32_t a = ia3::to_tf32(1.0f + threadIdx.x), b = ia3::to_tf32(0.5f);
   float acc[8][4] = {};
   for (int i = 0; i < iters; ++i)
 #pragma unroll
-    for (int k = 0; k < 8; ++k) mma_tf32(acc[k], a, a, a, a, b, b);
+    for (int k = 0; k < 8; ++k) ia3::mma_tf32(acc[k], a, a, a, a, b, b);
   float sum = 0.0f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) sum += acc[k][0] + acc[k][3];

@@ -1,6 +1,7 @@
 // Shared device code of the exact seeding kernels (level_stencil.cu,
 // dual_blur.cu, seed_classify.cu): the scipy 'reflect' index map, the
-// separable x+y Gaussian pass of one plane window in shared memory, and the
+// separable x+y Gaussian pass of one plane window in shared memory (run-time
+// tap count, and the register-blocked passes of a compile-time one), and the
 // 3^3 stencil + threshold-level classification of one voxel from a running
 // ring of the planes it has seen.
 //
@@ -99,22 +100,26 @@ __device__ __forceinline__ void blur_plane(const float* __restrict__ plane,
   __syncthreads();
 }
 
-// The x pass of blur_plane_blocked: a raw window staged in S (row stride
-// CO + K - 1) and visible to the block, into the x-passed rows XP (row
-// stride (CO + K - 1) | 1).  No barrier.
-template <int K, int RO, int CO, int MBX, int NT>
+// The tap-ordered x pass of a compile-time K-tap blur of an RO x CO window,
+// register blocked: a raw window staged in S (row stride SS >= CO + K - 1)
+// and visible to the block, into the x-passed rows XP (row stride
+// (CO + K - 1) | 1).  A work item computes MBX consecutive rows of one
+// column from MBX + K - 1 shared loads; each output still sums its taps in
+// order, so the result equals blur_plane's bit for bit.  No barrier.
+template <int K, int RO, int CO, int MBX, int NT, int SS = CO + K - 1>
 __device__ __forceinline__ void blur_staged_x(const float* __restrict__ taps,
                                               const float* S, float* XP) {
   static_assert(RO % MBX == 0, "blocks must tile");
   constexpr int SC = CO + K - 1;
   constexpr int XS = SC | 1;
+  static_assert(SS >= SC, "raw rows hold the window");
   for (int e = threadIdx.x; e < (RO / MBX) * SC; e += NT) {
     const int g = e / SC, j = e - g * SC;
-    const float* src = S + g * MBX * SC + j;
+    const float* src = S + g * MBX * SS + j;
     float acc[MBX];
 #pragma unroll
     for (int s = 0; s < MBX + K - 1; ++s) {
-      const float v = src[s * SC];
+      const float v = src[s * SS];
 #pragma unroll
       for (int m = 0; m < MBX; ++m) {
         const int u = s - m;
@@ -128,8 +133,11 @@ __device__ __forceinline__ void blur_staged_x(const float* __restrict__ taps,
   }
 }
 
-// The y pass of blur_plane_blocked: the x-passed rows XP, visible to the
-// block, into store(i, j, value).  No barrier.
+// The y pass over the x-passed rows XP (row stride (CO + K - 1) | 1),
+// visible to the block: a work item computes MBY consecutive columns of one
+// row (neighbouring threads take neighbouring rows, hence the odd stride)
+// and hands them to store(i, j0, acc), acc[m] the output at (i, j0 + m).
+// No barrier.
 template <int K, int RO, int CO, int MBY, int NT, class Store>
 __device__ __forceinline__ void blur_staged_y(const float* __restrict__ taps,
                                               const float* XP, Store store) {
@@ -150,32 +158,12 @@ __device__ __forceinline__ void blur_staged_y(const float* __restrict__ taps,
         acc[m] = u == 0 ? p : __fadd_rn(acc[m], p);
       }
     }
-#pragma unroll
-    for (int m = 0; m < MBY; ++m) store(i, h * MBY + m, acc[m]);
+    store(i, h * MBY, acc);
   }
 }
 
-// blur_plane for a compile-time tap count K and window RO x CO, register
-// blocked: an x-pass work item computes MBX consecutive rows of one column
-// from MBX + K - 1 shared loads, a y-pass item MBY consecutive columns of
-// one row (neighbouring threads take neighbouring rows, so the x-passed
-// rows get an odd stride).  Each output still sums its taps in order, so
-// the result equals blur_plane's bit for bit.
-template <int K, int RO, int CO, int MBX, int MBY, int NT, class Store>
-__device__ __forceinline__ void blur_plane_blocked(
-    const float* __restrict__ plane, int nx, int ny, int gx0, int gy0,
-    const float* __restrict__ taps, float* S, float* XP, Store store) {
-  constexpr int R = K / 2;
-  stage_window<NT>(plane, nx, ny, gx0 - R, gy0 - R, RO + 2 * R, CO + 2 * R,
-                   S);
-  blur_staged_x<K, RO, CO, MBX, NT>(taps, S, XP);
-  __syncthreads();
-  blur_staged_y<K, RO, CO, MBY, NT>(taps, XP, store);
-  __syncthreads();
-}
-
-// shared floats blur_plane / blur_plane_blocked use for a k-tap kernel on a
-// ro x co window: the raw window, then the x-passed rows (odd stride)
+// shared floats blur_plane uses for a k-tap kernel on a ro x co window: the
+// raw window, then the x-passed rows (odd stride)
 __host__ __device__ inline int raw_window_floats(int ro, int co, int k) {
   return (ro + k - 1) * (co + k - 1);
 }

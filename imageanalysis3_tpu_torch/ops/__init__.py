@@ -1,7 +1,7 @@
 """Numerical ops on tensors; six of them carry hand-written CUDA kernels
 (``seed_kernels``: seed_pyramid, seed_classify, dual_blur, level_stencil;
-``lm_kernel``: lm_fit; ``gather_kernel``: gather_cubes) beside their plain
-PyTorch versions."""
+``lm_kernel``: lm_fit; ``gather_kernel``: gather_cubes, whose cube and ball
+entries count as its launches) beside their plain PyTorch versions."""
 
 from . import gather_kernel, lm_kernel, seed_kernels
 

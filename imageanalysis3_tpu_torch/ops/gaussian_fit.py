@@ -12,7 +12,7 @@ target: reference External/Fitting_v4.py:165-683 --
     with all *other* reconstructions subtracted until centers move < 0.1 px.
 
 Every spot is fit concurrently: pixels are gathered into fixed in-ball
-blocks with bounds/ownership masks (the cubes by ops/gather_kernel.py), and
+blocks with bounds/ownership masks (ops/gather_kernel.py's ball entry), and
 the LM engine is ops/lm_kernel.py (each the CUDA kernel for CUDA tensors,
 its plain version on the CPU).  The sequential subtract-refit becomes
 block-synchronous (Jacobi) rounds.  The entry points that take one image
@@ -23,7 +23,6 @@ follow the JAX module's lines 630-779.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,7 +30,7 @@ import torch
 
 from ..device import as_tensor
 from .filters import counting_median
-from .gather_kernel import clip_origins, cube_sides, gather_cubes
+from .gather_kernel import ball_offsets, gather_ball
 from .lm_kernel import (geometry_jacobian, lm_fit, lm_fit_plain,
                         quadform_coeffs, to_sine, to_ws)
 from .matching import pairwise_distances
@@ -186,62 +185,21 @@ def rebase_center_params(params: torch.Tensor, center_est: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def ball_offsets(radius: int) -> np.ndarray:
-    """(P, 3) integer offsets inside the fitting ball, with the reference's
-    asymmetric range [-r, r) and |o| <= r filter (iter_fit :580-583)."""
-    g = np.indices([2 * radius] * 3).reshape(3, -1).T - radius
-    keep = (g ** 2).sum(1) <= radius ** 2
-    return g[keep].astype(np.int32)
-
-
-def _to_int32(x: torch.Tensor) -> torch.Tensor:
-    """``astype(int32)`` as XLA converts: truncation toward zero, NaN to 0,
-    out-of-range values saturated (PyTorch's own conversion of those is
-    undefined and differs between CPU and CUDA)."""
-    if not x.is_floating_point():
-        return x.to(torch.int32)
-    x = torch.nan_to_num(x.to(torch.float32), nan=0.0)
-    # the largest f32 below 2**31 (2**31 itself overflows)
-    return x.clamp(-2147483648.0, 2147483520.0).to(torch.int32)
-
-
-@functools.lru_cache(maxsize=32)
-def _block_constants(shape: Tuple[int, ...], radius: int,
-                     device: torch.device):
-    """The ball offsets (P, 3), the stack shape (3,) and the cube sides less
-    one (3,), made on `device` once per (shape, radius, device): a call of
-    :func:`gather_blocks` copies nothing from the host."""
-    sides = cube_sides(shape, radius)
-    return (torch.as_tensor(ball_offsets(radius), device=device),
-            torch.tensor(shape, device=device),
-            torch.tensor([d - 1 for d in sides], device=device))
-
-
 def gather_blocks(im: torch.Tensor, seeds_zxy: torch.Tensor, radius: int):
     """Gather (N, P) pixel blocks around integer seed positions.
 
     Returns (pixels, coords, base_mask), base_mask = in-ball & in-bounds
-    (reference iter_fit :580-608).  The JAX package's cube form: each seed's
-    (2r)^3 cube (2r clamped to the stack), its origin clipped into the
-    stack, comes from :func:`gather_kernel.gather_cubes`; one gather then
-    packs the in-ball offsets, each clipped into its cube.  Every in-bounds
-    ball pixel lies inside the cube; an out-of-bounds one reads a cube
-    voxel, the same voxel as in the JAX package, and is masked out
-    everywhere downstream.
+    (reference iter_fit :580-608): :func:`gather_kernel.gather_ball`, which
+    converts the seeds to int32 as XLA converts them and gathers the
+    in-ball pixels as the JAX package's cube form does (each seed's (2r)^3
+    cube, 2r clamped to the stack, its origin clipped into the stack, each
+    offset clipped into its cube): on the card one kernel launch, the
+    conversion included, with no cube array; on the CPU the cube-then-pack
+    itself.  Every in-bounds ball pixel lies inside the cube; an
+    out-of-bounds one reads a cube voxel, the same voxel as in the JAX
+    package, and is masked out everywhere downstream.
     """
-    n = seeds_zxy.shape[0]
-    sides = cube_sides(im.shape, radius)
-    offs, shape, last = _block_constants(tuple(im.shape), int(radius),
-                                         im.device)
-    base = _to_int32(seeds_zxy).to(torch.int64)
-    pos = base[:, None, :] + offs[None, :, :]                     # (N, P, 3)
-    inb = ((pos >= 0) & (pos < shape)).all(dim=-1)
-    origin = clip_origins(base - radius, im.shape, sides)         # (N, 3)
-    cubes = gather_cubes(im, origin, sides)                  # (N, sz, sx, sy)
-    rel = torch.minimum((pos - origin[:, None, :]).clamp_min(0), last)
-    idx = (rel[..., 0] * sides[1] + rel[..., 1]) * sides[2] + rel[..., 2]
-    pixels = torch.gather(cubes.reshape(n, -1), 1, idx)
-    return pixels, pos.to(torch.float32), inb
+    return gather_ball(im, seeds_zxy, int(radius))
 
 
 def neighbor_lists(seeds_zxy: torch.Tensor, valid: torch.Tensor,

@@ -15,12 +15,12 @@ The counterpart of ``imageanalysis3_tpu/ops/profiles.py``.  Behavior targets
 
 The percentile clip is a counting quantile (no 250 M-element sort), the
 per-spot regressions are one closed-form (cov/var) pass over gathered pixel
-blocks (``gather_blocks``, the cube-gather kernel), the polynomial field fit
-is a normalised SVD least squares, and the per-pixel mixing inverse is one
-batched ``torch.linalg.inv`` over (X*Y, C, C).  The entry points put NumPy
-inputs on `device` (default the card) and leave tensors where they are; the
-illumination running sum stays on the device.  Profiles come back as NumPy
-arrays, the form the profile files hold.
+blocks (``gather_blocks``, the gather kernel's ball entry), the polynomial
+field fit is a normalised SVD least squares, and the per-pixel mixing
+inverse is one batched ``torch.linalg.inv`` over (X*Y, C, C).  The entry
+points put NumPy inputs on `device` (default the card) and leave tensors
+where they are; the illumination running sum stays on the device.
+Profiles come back as NumPy arrays, the form the profile files hold.
 """
 
 from __future__ import annotations

@@ -25,10 +25,11 @@ per-level histogram of those voxels.  Each dispatcher runs the CUDA kernel
 for a CUDA tensor and the plain version for a CPU tensor, and raises on any
 other device.  Kernel and plain version sum every blur in the same tap
 order, so they agree bit for bit, with one exception: for the default taps
-(7 and 61) ``seed_classify.cu`` computes the background's x and y passes on
-the tensor cores as banded split-TF32 products (:func:`band_fragments`;
-its arithmetic model is :func:`blur_xy_split_tf32_plain`), and is held to
-the JAX tests' tolerances for the fused classifier instead.
+(7 and 61) ``seed_classify.cu`` and ``dual_blur.cu`` compute the
+background's x and y passes on the tensor cores as banded split-TF32
+products (``csrc/band_mma.cuh``, :func:`band_fragments`; its arithmetic
+model is :func:`blur_xy_split_tf32_plain`), and are held to the JAX tests'
+tolerances (the fused classifier's, the dual blur's) instead.
 """
 
 from __future__ import annotations
@@ -360,8 +361,8 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(x - hi)
 
 
-#: the tap counts (fg, bg) whose bg passes seed_classify.cu runs on the
-#: tensor cores (KF_MMA, KB_MMA there)
+#: the tap counts (fg, bg) whose bg passes seed_classify.cu and dual_blur.cu
+#: run on the tensor cores (KF_MMA, KB_MMA there)
 MMA_TAPS = (7, 61)
 
 
@@ -372,7 +373,7 @@ def band_chunks(k: int, width: int) -> int:
 
 def band_fragments(taps: np.ndarray) -> np.ndarray:
     """The constant band of `taps` as the per-lane ``mma.sync.m16n8k8`` TF32
-    fragment table (chunks, 32, 4) seed_classify.cu reads: for 8-deep band
+    fragment table (chunks, 32, 4) ``band_mma.cuh`` reads: for 8-deep band
     chunk c and lane (g = lane >> 2, t = lane & 3) the values
     d = taps[8c + t - g] and e = taps[8c + t - g + 4] (0 outside the taps),
     stored (d.hi, e.hi, d.lo, e.lo).  The band is Toeplitz, so these are
@@ -412,11 +413,11 @@ def _banded_split_tf32(im: torch.Tensor, kernel: np.ndarray, axis: int
 
 def blur_xy_split_tf32_plain(im: torch.Tensor, kernel: np.ndarray
                              ) -> torch.Tensor:
-    """Arithmetic model of seed_classify.cu's tensor-core bg blur: the x
-    then the y 'reflect' pass, each a banded split-TF32 product.  It sums
-    in another order than the kernel's 8-deep chunks, so it bounds the
-    kernel's error and does not reproduce its bits; tests use it and no
-    path does."""
+    """Arithmetic model of the tensor-core bg blur of seed_classify.cu and
+    dual_blur.cu (``band_mma.cuh``): the x then the y 'reflect' pass, each a
+    banded split-TF32 product.  It sums in another order than the kernels'
+    8-deep chunks, so it bounds their error and does not reproduce their
+    bits; tests use it and no path does."""
     return _banded_split_tf32(_banded_split_tf32(im, kernel, 1), kernel, 2)
 
 
@@ -542,14 +543,20 @@ def dual_blur_xy_plain(fgz: torch.Tensor, bgz: torch.Tensor,
                        k_fg: np.ndarray, k_bg: np.ndarray
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``csrc/dual_blur.cu``: the x then y
-    'reflect' passes of each z-passed stack, taps in order."""
+    'reflect' passes of each z-passed stack, taps in order.  The kernel's
+    fg equals it bit for bit; for the default taps (:data:`MMA_TAPS`) its
+    bg is the banded split-TF32 product (arithmetic model
+    :func:`blur_xy_split_tf32_plain`), within the JAX tests' rtol 2e-5 /
+    atol 2e-2 of this one."""
     return _blur_xy(fgz, k_fg), _blur_xy(bgz, k_bg)
 
 
 def dual_blur_xy_cuda(fgz: torch.Tensor, bgz: torch.Tensor,
                       k_fg: np.ndarray, k_bg: np.ndarray
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/dual_blur.cu`` on the current stream."""
+    """Launch ``csrc/dual_blur.cu`` on the current stream: the default taps
+    (:data:`MMA_TAPS`) take its tensor-core kernel, any others its
+    run-time-radius kernel."""
     if fgz.ndim != 3:
         raise ValueError(f"dual_blur: fgz must be (Z, X, Y), got "
                          f"{tuple(fgz.shape)}")
@@ -558,13 +565,30 @@ def dual_blur_xy_cuda(fgz: torch.Tensor, bgz: torch.Tensor,
     tf, tb = _host_taps(k_fg), _host_taps(k_bg)
     z, x, y = fgz.shape
     fg, bg = torch.empty_like(fgz), torch.empty_like(bgz)
+    band = (_band_table(tb, fgz.device).data_ptr()
+            if (len(tf), len(tb)) == MMA_TAPS else None)
     _launch("dual_blur",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p],
             fgz.data_ptr(), bgz.data_ptr(), fg.data_ptr(), bg.data_ptr(),
-            tf.ctypes.data, len(tf), tb.ctypes.data, len(tb), z, x, y,
+            tf.ctypes.data, len(tf), tb.ctypes.data, len(tb), band, z, x, y,
             _stream(fgz))
     return fg, bg
+
+
+def dual_blur_occupancy_cuda(k_fg: int, k_bg: int) -> Tuple[int, int, int]:
+    """(resident blocks per SM, threads per block, dynamic shared memory
+    bytes per block) of the ``csrc/dual_blur.cu`` kernel that tap counts
+    (k_fg, k_bg) launch, as the card grants them."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    fn = _build.load("dual_blur").dual_blur_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    rc = fn(int(k_fg), int(k_bg), *(ctypes.addressof(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"dual_blur occupancy query failed ({rc})")
+    return tuple(v.value for v in out)
 
 
 def dual_gaussian_blur(im: torch.Tensor, sigma_fg: float, sigma_bg: float

@@ -1,10 +1,11 @@
-"""PyTorch port vs JAX package: the cube gather on the CPU.
+"""PyTorch port vs JAX package: the fit's gathers on the CPU.
 
-The port's ``gather_cubes`` runs its plain version on CPU tensors; the JAX
-side is the Pallas kernel ``scripts/ab_gather2.py:gather_aligned`` in
-interpret mode (its aligned windows need X >= 24 and Y >= 256) and the
-vmapped ``dynamic_slice`` it replaces, and ``gaussian_fit.gather_blocks``.
-A gather copies values, so every comparison is exact.
+The port's ``gather_cubes`` and ``gather_ball`` run their plain versions on
+CPU tensors; the JAX side is the Pallas kernel
+``scripts/ab_gather2.py:gather_aligned`` in interpret mode (its aligned
+windows need X >= 24 and Y >= 256) and the vmapped ``dynamic_slice`` it
+replaces, and ``gaussian_fit.gather_blocks``.  A gather copies values, so
+every comparison is exact.
 """
 
 import os
@@ -125,3 +126,58 @@ def test_gather_cubes_dispatches_cpu_to_plain():
         gk.gather_cubes_cuda(im, origins, sides)
     with pytest.raises(ValueError, match="sides"):
         gk.gather_cubes(im, origins, (13, 10, 10))
+
+
+# seeds the fit can be handed besides finite ones: NaN (-> 0), +-inf and
+# values beyond the int32 range (saturated), the edges of that range, whose
+# ball positions wrap in int32 as XLA's sums do
+_EXTREME = np.array([[np.nan, 3.0, 3.0], [np.inf, -np.inf, 2.0],
+                     [1e10, -1e10, 5.0], [np.nan, np.nan, np.nan],
+                     [2147483520.0, -3.0, 5.0],
+                     [-2147483520.0, 5.0, 2147483520.0]], np.float32)
+
+
+@pytest.mark.parametrize("shape,radius", [((12, 128, 128), 4),
+                                          ((12, 128, 128), 5),
+                                          ((12, 128, 128), 6),
+                                          ((6, 96, 96), 5)],
+                         ids=["r4", "r5", "r6", "thin_r5"])
+def test_ball_plain_matches_jax_gather_blocks(shape, radius):
+    """The ball entry's plain version (XLA's int32 conversion, then
+    cube-then-pack) equals JAX's gather_blocks on every entry, masked ones
+    included, for finite seeds in and around the stack and for non-finite
+    and huge ones; gather_blocks itself returns it."""
+    im = _stack(shape, 8)
+    seeds = np.concatenate([_seeds(shape, 48, 9), _EXTREME])
+    pj, cj, mj = jg.gather_blocks(jnp.asarray(im), jnp.asarray(seeds), radius)
+    np.testing.assert_array_equal(
+        gk._to_int32(torch.from_numpy(seeds)).numpy(),
+        np.asarray(jnp.asarray(seeds).astype(jnp.int32)))
+    got = gk.gather_ball_plain(torch.from_numpy(im), torch.from_numpy(seeds),
+                               radius)
+    assert got[0].shape == (len(seeds), len(gk.ball_offsets(radius)))
+    for g, want in zip(got, (pj, cj, mj)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+    for g, b in zip(got, tg.gather_blocks(torch.from_numpy(im),
+                                          torch.from_numpy(seeds), radius)):
+        assert torch.equal(g, b)
+    assert not np.asarray(mj)[-len(_EXTREME):].all()
+
+
+def test_gather_ball_dispatches_cpu_to_plain():
+    """A CPU tensor takes the plain version and launches nothing; the CUDA
+    wrapper refuses CPU tensors, and a tensor on another device has neither
+    kernel nor plain version."""
+    im = torch.from_numpy(_stack((12, 32, 40), 7))
+    base = torch.tensor([[0, 1, 2], [5, 20, 30], [-4, 99, 7]],
+                        dtype=torch.int32)
+    gk.launches = 0
+    for seeds in (base, base.to(torch.float32) + 0.5):
+        got = gk.gather_ball(im, seeds, 5)
+        for g, want in zip(got, gk.gather_ball_plain(im, seeds, 5)):
+            assert torch.equal(g, want)
+        with pytest.raises(ValueError, match="CUDA"):
+            gk.gather_ball_cuda(im, seeds, 5)
+    assert gk.launches == 0
+    with pytest.raises(ValueError, match="no kernel for device"):
+        gk.gather_ball(im.to("meta"), base, 5)

@@ -78,6 +78,75 @@ def test_dual_blur_plain_matches_pallas_and_gaussian_filter(shape):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-2)
 
 
+def _dual_blur_model_xy(fgz, bgz, k_fg, k_bg):
+    """dual_blur.cu's arithmetic for the default taps (7, 61): fg in tap
+    order (bit for bit the plain version's), bg by the split-TF32 model of
+    its tensor-core passes."""
+    assert (len(k_fg), len(k_bg)) == tk.MMA_TAPS
+    return tk._blur_xy(fgz, k_fg), tk.blur_xy_split_tf32_plain(bgz, k_bg)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("full_range", [False, True])
+def test_dual_blur_model_matches_pallas_and_plain(monkeypatch, shape,
+                                                  full_range):
+    """The tensor-core dual blur's model lies within the JAX tests' rtol
+    2e-5 / atol 2e-2 (tests/test_pallas.py) of the Pallas dual blur in
+    interpret mode and of the port's plain version, over the whole uint16
+    range too; its fg equals the plain version's bit for bit."""
+    rng = np.random.default_rng(12)
+    lo, hi = (0, 65536) if full_range else (50, 3000)
+    im = rng.integers(lo, hi, shape).astype(np.float32)
+    fg_p, bg_p = tk.dual_gaussian_blur(torch.from_numpy(im), 0.75, 7.5)
+    monkeypatch.setattr(tk, "dual_blur_xy_plain", _dual_blur_model_xy)
+    fg_m, bg_m = tk.dual_gaussian_blur(torch.from_numpy(im), 0.75, 7.5)
+    fg_j, bg_j = dual_gaussian_blur(jnp.asarray(im), 0.75, 7.5,
+                                    interpret=True)
+    assert torch.equal(fg_m, fg_p)
+    assert not torch.equal(bg_m, bg_p)       # the model is another sum
+    for got, pallas, plain in ((fg_m, fg_j, fg_p), (bg_m, bg_j, bg_p)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
+                                   rtol=2e-5, atol=2e-2)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-5,
+                                   atol=2e-2)
+
+
+def test_get_seeds_dual_blur_model_matches_jax(monkeypatch):
+    """get_seeds(filt_size=5) on the tensor-core dual blur's model gives
+    JAX's seed set, count and threshold; heights (fg - bg) within the dual
+    blur's rtol 2e-5 / atol 2e-2."""
+    im = _planted((12, 128, 256), 24, 4, 5)
+    kw = dict(max_num_seeds=64, th_seed=300.0, filt_size=5)
+    s_j = js.get_seeds(jnp.asarray(im), **kw)
+    monkeypatch.setattr(tk, "dual_blur_xy_plain", _dual_blur_model_xy)
+    s_t = ts.get_seeds(torch.from_numpy(im), pyramid_bg=False, **kw)
+    c_t = s_t.coords.numpy()[s_t.valid.numpy()]
+    c_j = np.asarray(s_j.coords)[np.asarray(s_j.valid)]
+    assert len(c_t) == len(c_j) >= 20
+    o_t, o_j = np.lexsort(c_t.T[::-1]), np.lexsort(c_j.T[::-1])
+    np.testing.assert_array_equal(c_t[o_t], c_j[o_j])
+    h_t = s_t.heights.numpy()[s_t.valid.numpy()][o_t]
+    h_j = np.asarray(s_j.heights)[np.asarray(s_j.valid)][o_j]
+    np.testing.assert_allclose(h_t, h_j, rtol=2e-5, atol=2e-2)
+    assert int(s_t.count) == int(s_j.count)
+    assert float(s_t.threshold) == float(s_j.threshold)
+
+
+def test_dual_blur_model_counts_nothing_on_a_constant_stack():
+    """On a flat stack the split products need not give equal bg values, so
+    voxels may pass minimum_filter(bg, 5) != bg; their diff is ~0, which is
+    level n_lvl and never counted, and no seed comes out."""
+    shape = (12, 64, 128)
+    im = torch.full(shape, 800.0)
+    k_fg, k_bg = gaussian_kernel1d(0.75), gaussian_kernel1d(7.5)
+    fg, bg = _dual_blur_model_xy(im, im, k_fg, k_bg)
+    q, c = ts._classify_from_blurs(fg, bg, 300.0, 0, shape[1], shape, 5, 2,
+                                   10)
+    assert int(c.sum()) == 0
+    fin = torch.isfinite(q)
+    assert not fin.any() or float(q[fin].abs().max()) < 0.05
+
+
 def _check_classifier(q_t, c_t, q_ref, c_ref):
     """tests/test_pallas.py's tolerances for the fused classifier."""
     q_ref = np.asarray(q_ref)
