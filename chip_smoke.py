@@ -17,7 +17,11 @@ Phases, each of which raises (exit code != 0) on a failed check:
    warps; the exact classifier, whose default taps run the bg blur on the
    tensor cores and are held by tolerance, with the one-warp proof of its
    mma fragment layout, two equal
-   launches, a constant stack and a full-range input; the level stencil;
+   launches, a constant stack and a full-range input; the level stencil,
+   held equal to its plain version (level, counts and diff) at 60 and 30
+   planes, on ragged and unaligned crops (its 4-byte-copy instance), at
+   nz = 1, 2, 3, on tie plateaus, a constant and a full-range stack and
+   at n_lvl 1 and 126, timed at both shapes with its occupancy and waves;
    the dual x+y blur, whose default taps also run the bg blur on the
    tensor cores (fg bit-identical, bg within the JAX tests' tolerance; a
    7x75x203 stack, a full-range input, two equal launches, a constant
@@ -69,10 +73,12 @@ name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
 record goes to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds one
 slice-1 round under torch.profiler (device time by kernel, device busy
 share).  ``--only seed_classify``, ``--only seed_pyramid``, ``--only
-lm_fit``, ``--only dual_blur`` and ``--only gather_cubes`` build that
-kernel alone and run its checks and timing, nothing else; ``--only
-gather_blocks`` times ``gaussian_fit.gather_blocks`` whole at every launch
-shape and checks nothing (so that it also times an older tree's).
+lm_fit``, ``--only dual_blur``, ``--only level_stencil`` and ``--only
+gather_cubes`` build that kernel alone and run its checks and timing,
+nothing else (``--only level_stencil`` also runs from an older tree, which
+then reports no occupancy); ``--only gather_blocks`` times
+``gaussian_fit.gather_blocks`` whole at every launch shape and checks
+nothing (so that it also times an older tree's).
 """
 
 from __future__ import annotations
@@ -113,16 +119,27 @@ def _smi() -> str:
 def _function_name(mangled: str) -> str:
     """The kernel's own identifier in an Itanium-mangled name (the one whose
     length prefix spans it and that ends in kernel, selftest or rate), with
-    a template radius as <R>."""
+    a template radius as <R> and a template flag as <true> or <false>."""
+    found = []
     for m in re.finditer(r"\d+", mangled):
         digits = m.group()
         for k in range(len(digits)):
             start, n = m.end(), int(digits[k:])
             ident = mangled[start:start + n]
             if re.fullmatch(r"[A-Za-z_]\w*(kernel|selftest|rate)", ident):
-                t = re.match(r"ILi(\d+)E", mangled[start + n:])
-                return ident + (f"<{t.group(1)}>" if t else "")
-    return mangled
+                found.append((n, start))
+    if not found:
+        return mangled
+    # the shortest: an anonymous namespace's name may end where it starts
+    n, start = min(found)
+    ident = mangled[start:start + n]
+    t = re.match(r"IL([ib])(\d+)E", mangled[start + n:])
+    if not t:
+        return ident
+    arg = t.group(2)
+    if t.group(1) == "b":
+        arg = "true" if arg == "1" else "false"
+    return ident + f"<{arg}>"
 
 
 def _ptxas_report(log: str):
@@ -576,9 +593,16 @@ def _dual_blur_checks(torch, sk, corrected, k_fg, k_bg, peaks,
             "bound": (bench_t["bound_ms"], bench_t["bound_by"])}
 
 
+def _stencil_vec(mx, mn) -> bool:
+    """Whether csrc/level_stencil.cu takes its 16-byte-copy instance for
+    these inputs (its launcher's rule; fresh outputs are aligned)."""
+    return (mx.shape[-1] % 4 == 0 and mx.data_ptr() % 16 == 0
+            and mn.data_ptr() % 16 == 0)
+
+
 def _check_level_stencil(torch, sk, inp) -> dict:
-    """level_stencil against its plain version: level and counts identical,
-    diff within rtol 1e-6."""
+    """level_stencil against its plain version on one input: level, counts
+    and diff identical (torch.equal), diff also within rtol 1e-6."""
     lk, dk, ck = sk.level_stencil_cuda(*inp)
     lp, dp, cp = sk.level_stencil_plain(*inp)
     torch.cuda.synchronize()
@@ -588,8 +612,176 @@ def _check_level_stencil(torch, sk, inp) -> dict:
                              "counted)")
     if not torch.allclose(dk, dp, rtol=1e-6, atol=0.0):
         raise AssertionError("level_stencil: diff differs beyond rtol 1e-6")
-    return {"max_abs_err": _max_abs(torch, dk, dp),
-            "counts": int(ck.sum()), "identical": torch.equal(dk, dp)}
+    if not torch.equal(dk, dp):
+        raise AssertionError(f"level_stencil: diff differs from the plain "
+                             f"version by {_max_abs(torch, dk, dp)}")
+    return {"max_abs_err": _max_abs(torch, dk, dp), "counts": int(ck.sum()),
+            "shape": list(inp[0].shape), "vec": _stencil_vec(inp[0], inp[1])}
+
+
+def _level_stencil_checks(torch, sk, blurs, peaks, smi: str) -> dict:
+    """Everything held of level_stencil, each case by _check_level_stencil
+    (level, counts and diff equal to the plain version's): the bench
+    scene's blurs (fg, bg pairs) at 60x2048x2048 and their first 30 planes
+    (the level-stencil path's shape); ragged 12x196x260 and 7x75x203 crops
+    (ny % 4 = 3); a crop whose inputs start one float into their storage
+    (the 4-byte-copy instance); nz = 1, 2, 3 at min_edge_distance 0;
+    integer-valued plateau stacks full of ties (th 3); a constant stack,
+    which must count 0; the blurs scaled to full range; n_lvl = 1 and 126;
+    two launches that must be equal.  Then ptxas, the resident blocks and
+    warps per SM and the waves of each instance, and at both full shapes
+    CUDA-event medians of kernel and plain version over three fresh inputs
+    beside the bound and the achieved TB/s, with ``torch.sub(mx, mn)``'s
+    (12 of the kernel's 13 bytes a voxel) as the card's streaming
+    yardstick; then the kernel's time on the bench blurs cut or extended
+    along x to fill 7.0 to 8.5 waves."""
+    from imageanalysis3_tpu_torch import _build
+
+    fg, bg = blurs[0]
+    dev = fg.device
+    half = [(f[:DUAL_SHAPE[0]].contiguous(), b[:DUAL_SHAPE[0]].contiguous())
+            for f, b in blurs]
+    checks = {}
+
+    def held(label, mx, mn, th=TH_SEED, n_lvl=N_LVL, edge=EDGE):
+        checks[label] = _check_level_stencil(torch, sk,
+                                             (mx, mn, th, n_lvl, edge))
+
+    def crop(t, shape, at=(20, 300, 500)):
+        return t[at[0]:at[0] + shape[0], at[1]:at[1] + shape[1],
+                 at[2]:at[2] + shape[2]].contiguous()
+
+    def offset(t):   # contiguous, one float into its storage
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    held("bench", fg, bg)
+    held("half", *half[0])
+    for shape in ((12, 196, 260), (7, 75, 203)):
+        held("x".join(map(str, shape)), crop(fg, shape), crop(bg, shape))
+    held("unaligned", offset(crop(fg, (12, 196, 260))),
+         offset(crop(bg, (12, 196, 260))))
+    for nz in (1, 2, 3):
+        held(f"nz{nz}", crop(fg, (nz, 196, 260)), crop(bg, (nz, 196, 260)),
+             edge=0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for shape in ((12, 256, 512), (7, 75, 203)):
+        held(f"ties_{'x'.join(map(str, shape))}",
+             torch.randint(0, 4, shape, device=dev, generator=gen).float(),
+             torch.randint(0, 3, shape, device=dev, generator=gen).float(),
+             th=3.0)
+    flat = torch.full((12, 256, 256), 800.0, device=dev)
+    held("constant", flat, flat.clone())
+    gain = 65535.0 / float(half[0][0].max())
+    held("full_range", half[0][0] * gain, half[0][1] * gain)
+    held("n_lvl1", *half[1], n_lvl=1)
+    held("n_lvl126", *half[1], n_lvl=126)
+    if checks["unaligned"]["vec"] or checks["7x75x203"]["vec"]:
+        raise AssertionError("level_stencil: a case meant for the 4-byte-"
+                             "copy instance would take the 16-byte one")
+    if checks["constant"]["counts"] != 0:
+        raise AssertionError(f"level_stencil: a constant stack counted "
+                             f"{checks['constant']['counts']}")
+    if min(checks[k]["counts"] for k in ("bench", "ties_12x256x512")) == 0:
+        raise AssertionError("level_stencil: a case meant to count "
+                             "voxels counted none")
+    first = sk.level_stencil_cuda(*half[2], TH_SEED, N_LVL, EDGE)
+    second = sk.level_stencil_cuda(*half[2], TH_SEED, N_LVL, EDGE)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(first, second)):
+        raise AssertionError("level_stencil: two launches on one input "
+                             "differ")
+    del first, second
+
+    ptxas = _ptxas_report(_build.build_logs.get("level_stencil", ""))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occupancy = {}
+    query = getattr(sk, "level_stencil_occupancy_cuda", None)
+    for vec in (True, False) if query else ():
+        blocks, threads, smem, tx, ty = query(vec)
+        occupancy["16-byte" if vec else "4-byte"] = {
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "smem_bytes": smem, "tile": (tx, ty), "slots": blocks * sms}
+
+    def waves(o, shape):   # tiles over resident blocks
+        tx, ty = o["tile"]
+        return -(-shape[1] // tx) * -(-shape[2] // ty) / o["slots"]
+
+    for o in occupancy.values():
+        o["waves"] = {"x".join(map(str, s)): waves(o, s)
+                      for s in (SHAPE, DUAL_SHAPE)}
+
+    shapes = {}
+    for inputs in ([(f, b, TH_SEED, N_LVL, EDGE) for f, b in blurs],
+                   [(f, b, TH_SEED, N_LVL, EDGE) for f, b in half]):
+        name = "x".join(str(n) for n in inputs[0][0].shape)
+        ms = _events_ms(torch, sk.level_stencil_cuda, inputs,
+                        queue_ahead=True)
+        plain_ms = _events_ms(torch, sk.level_stencil_plain, inputs,
+                              queue_ahead=False)
+        # the card's streaming yardstick: one elementwise call that moves
+        # 12 of the kernel's 13 bytes a voxel (diff = mx - mn alone)
+        out = torch.empty_like(inputs[0][0])
+        sub_ms = _events_ms(torch, lambda m, n, *_: torch.sub(m, n, out=out),
+                            inputs, queue_ahead=True)
+        del out
+        nvox = float(inputs[0][0].numel())
+        nbytes = nvox * (4 + 4 + 4 + 1) + 4 * N_LVL
+        # 26 maxima, 26 minima, the difference, two compares and the
+        # level's 5 (divide, subtract, multiply, ceil, clip) on every voxel
+        bound = _bound(nbytes, nvox * 60, peaks)
+        shapes[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1],
+                        "tb_per_s": nbytes / (ms * 1e-3) / 1e12,
+                        "sub_ms": sub_ms,
+                        "sub_tb_per_s": 12 * nvox / (sub_ms * 1e-3) / 1e12}
+    del half
+    # the wave tail: the bench blurs cut or extended along x so that the
+    # 16-byte instance's tiles fill 7.0 to 8.5 waves; a time a voxel that
+    # steps with the waves' ceiling is what the tail costs
+    sweep = {}
+    for nx in (1856, 1984, 2048, 2112, 2240) if occupancy else ():
+        def at(t):
+            return (t[:, :nx] if nx <= t.shape[1] else
+                    torch.cat([t, t[:, :nx - t.shape[1]]], 1)).contiguous()
+        inputs = [(at(f), at(b), TH_SEED, N_LVL, EDGE) for f, b in blurs]
+        ms = _events_ms(torch, sk.level_stencil_cuda, inputs,
+                        queue_ahead=True)
+        sweep[nx] = {"waves": waves(occupancy["16-byte"], inputs[0][0].shape),
+                     "ms": ms, "ps_per_voxel": ms * 1e9 / inputs[0][0].numel()}
+        del inputs
+    bench_t = shapes["x".join(str(n) for n in fg.shape)]
+    print(f"level_stencil: PASS  level, counts and diff equal to the plain "
+          f"version (torch.equal) on " + ", ".join(
+              f"{k} ({v['counts']} counted"
+              f"{'' if v['vec'] else ', 4-byte copies'})"
+              for k, v in checks.items()) + "; two launches equal")
+    for line in ptxas:
+        print(f"  ptxas level_stencil: {line}")
+    for inst, o in occupancy.items():
+        print(f"  occupancy level_stencil ({inst} copies): {o['smem_bytes']} "
+              f"B shared memory a block, {o['blocks_per_sm']} blocks, "
+              f"{o['warps_per_sm']} warps per SM, tile {o['tile']}, waves "
+              + ", ".join(f"{k}: {w:.2f}" for k, w in o["waves"].items()))
+    for name, t in shapes.items():
+        print(f"kernels: level_stencil {name} {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}, {t['ms'] / t['bound_ms']:.2f}x, "
+              f"{t['tb_per_s']:.3f} TB/s; torch.sub alone {t['sub_ms']:.4f} "
+              f"ms, {t['sub_tb_per_s']:.3f} TB/s)  [{smi}]")
+    if sweep:
+        print(f"  waves level_stencil ({fg.shape[0]} x nx x {fg.shape[2]}, "
+              f"the bench blurs): " + ", ".join(
+                  f"nx {nx}: {w['waves']:.2f} waves {w['ms']:.4f} ms "
+                  f"{w['ps_per_voxel']:.4f} ps/voxel"
+                  for nx, w in sweep.items()))
+    return {**checks["bench"], "checks": checks, "ptxas": ptxas,
+            "occupancy": occupancy, "waves_sweep": sweep,
+            "shapes": shapes, "ms": bench_t["ms"],
+            "plain_ms": bench_t["plain_ms"],
+            "bound": (bench_t["bound_ms"], bench_t["bound_by"])}
 
 
 def _dual_blur_phase(torch, smi: str) -> dict:
@@ -1567,8 +1759,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one round (device time by kernel)")
     ap.add_argument("--only", choices=["seed_classify", "seed_pyramid",
-                                       "lm_fit", "dual_blur", "gather_cubes",
-                                       "gather_blocks"],
+                                       "lm_fit", "dual_blur", "level_stencil",
+                                       "gather_cubes", "gather_blocks"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
@@ -1671,6 +1863,13 @@ def main(argv=None) -> int:
     if args.only == "gather_cubes":
         _gather_checks(torch, corrected, truth["centers"], peaks, smi)
         return 0
+    if args.only == "level_stencil":
+        k_bg = gaussian_kernel1d(sig_bg)
+        blurs = [seed_kernels.dual_blur_xy_plain(
+            *seed_kernels.z_pass_pair(im, k_fg, k_bg), k_fg, k_bg)
+            for im in corrected]
+        _level_stencil_checks(torch, seed_kernels, blurs, peaks, smi)
+        return 0
     if args.only == "gather_blocks":
         _gather_blocks_times(torch, corrected, truth["centers"], smi)
         return 0
@@ -1678,7 +1877,6 @@ def main(argv=None) -> int:
                                peaks, smi)
     pyr_err, pyr_ms, pyr_plain_ms = pyr["max_abs_err"], pyr["ms"], pyr["plain_ms"]
     pyr_bound = pyr["bound"]
-    nvox = float(np.prod(shape))
 
     # the exact classifier's kernels on the same corrected stacks: the
     # z-passed pair feeds seed_classify and dual_blur, its plain blurs
@@ -1688,22 +1886,11 @@ def main(argv=None) -> int:
                                peaks, smi)
     cls, cls_gen, zpass = sc["cls"], sc["cls_gen"], sc.pop("zpass")
     cls_ms, cls_plain_ms, cls_bound = sc["ms"], sc["plain_ms"], sc["bound"]
-    lvl_in = [(*seed_kernels.dual_blur_xy_plain(fgz, bgz, k_fg, k_bg),
-               TH_SEED, N_LVL, EDGE) for fgz, bgz in zpass]
+    blurs = [seed_kernels.dual_blur_xy_plain(fgz, bgz, k_fg, k_bg)
+             for fgz, bgz in zpass]
     del zpass
-    lvl = _check_level_stencil(torch, seed_kernels, lvl_in[0])
-    lvl_ms = _events_ms(torch, seed_kernels.level_stencil_cuda, lvl_in,
-                        queue_ahead=True)
-    lvl_plain_ms = _events_ms(torch, seed_kernels.level_stencil_plain,
-                              lvl_in, queue_ahead=False)
-    del lvl_in
-    # 26 maxima, 26 minima, the difference, two compares and the level's
-    # 5 (divide, subtract, multiply, ceil, clip) on every voxel
-    lvl_bound = _bound(nvox * (4 + 4 + 4 + 1) + 4 * N_LVL, nvox * 60, peaks)
-    print(f"level_stencil: PASS  counts {lvl['counts']}, level identical, "
-          f"max |ddiff| {lvl['max_abs_err']:.3g}")
-    print(f"kernels: level_stencil {lvl_ms:.4f} ms (plain {lvl_plain_ms:.4f} "
-          f"ms, bound {lvl_bound[0]:.4f} ms by {lvl_bound[1]})  [{smi}]")
+    lvl = _level_stencil_checks(torch, seed_kernels, blurs, peaks, smi)
+    del blurs
     blur = _dual_blur_checks(torch, seed_kernels, corrected, k_fg, k_bg,
                              peaks, smi)
 
@@ -1856,9 +2043,10 @@ def main(argv=None) -> int:
          "source": "imageanalysis3_tpu_torch/csrc/level_stencil.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:120",
          "launches": dual["level_stencil_launches"]["level_stencil"],
-         "max_abs_err": lvl["max_abs_err"], "ms": lvl_ms,
-         "plain_ms": lvl_plain_ms, "bound_ms": lvl_bound[0],
-         "bound_by": lvl_bound[1], "library_ms": None},
+         "max_abs_err": lvl["max_abs_err"], "ms": lvl["ms"],
+         "plain_ms": lvl["plain_ms"], "bound_ms": lvl["bound"][0],
+         "bound_by": lvl["bound"][1], "library_ms": None,
+         "shapes": lvl["shapes"]},
         {"name": "gather_cubes", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/gather_cubes.cu",
          "replaces": "scripts/ab_gather2.py:62",

@@ -651,6 +651,22 @@ def level_stencil_cuda(max_im: torch.Tensor, min_im: torch.Tensor,
     return level, diff, counts
 
 
+def level_stencil_occupancy_cuda(vec: bool) -> Tuple[int, int, int, int,
+                                                      int]:
+    """(resident blocks per SM, threads per block, dynamic shared memory
+    bytes per block, tile rows, tile columns) of the ``csrc/level_stencil.cu``
+    instance with 16-byte copies (`vec`) or with 4-byte copies, as the card
+    grants them."""
+    out = [ctypes.c_int(0) for _ in range(5)]
+    fn = _build.load("level_stencil").level_stencil_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
+    rc = fn(int(bool(vec)), *(ctypes.addressof(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"level_stencil occupancy query failed ({rc})")
+    return tuple(v.value for v in out)
+
+
 def level_stencil(max_im: torch.Tensor, min_im: torch.Tensor, th_seed,
                   n_lvl: int, min_edge_distance: int = 2
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

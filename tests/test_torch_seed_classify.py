@@ -62,6 +62,52 @@ def test_level_stencil_plain_matches_pallas_interpret(shape):
     assert int(cnt_t.sum()) > 0
 
 
+def _blurred_pair(shape, seed):
+    im = jnp.asarray(_raw(shape, seed))
+    return np.asarray(jgauss(im, 0.75)), np.asarray(jgauss(im, 7.5))
+
+
+def _tie_pair(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 4, shape).astype(np.float32),
+            rng.integers(0, 3, shape).astype(np.float32))
+
+
+def _constant_pair(shape, seed):
+    return (np.full(shape, 800.0, np.float32),
+            np.full(shape, 800.0, np.float32))
+
+
+@pytest.mark.parametrize("shape,edge,th,make,least", [
+    ((6, 31, 203), 2, 300.0, _blurred_pair, 1),      # ny % 4 = 3
+    ((1, 16, 128), 0, 300.0, _blurred_pair, 1),
+    ((2, 8, 130), 0, 300.0, _blurred_pair, 1),
+    ((3, 31, 203), 0, 300.0, _blurred_pair, 1),
+    ((6, 31, 203), 2, 3.0, _tie_pair, 1000),
+    ((4, 16, 128), 0, 3.0, _tie_pair, 100),
+    ((5, 24, 64), 2, 300.0, _constant_pair, 0),
+])
+def test_level_stencil_plain_matches_pallas_edge_cases(shape, edge, th, make,
+                                                       least):
+    """Level, diff and counts equal to the Pallas kernel (interpret mode)
+    on the shapes and inputs the CUDA kernel's edge handling must get
+    right: ragged rows, one to three planes, tie plateaus (integer values,
+    thousands of counted voxels) and a constant stack, which counts
+    nothing."""
+    mx, mn = make(shape, 3)
+    lvl_j, diff_j, cnt_j = level_stencil_pallas(
+        jnp.asarray(mx), jnp.asarray(mn), th, 10, min_edge_distance=edge,
+        interpret=True)
+    lvl_t, diff_t, cnt_t = tk.level_stencil(torch.from_numpy(mx),
+                                            torch.from_numpy(mn), th, 10,
+                                            edge)
+    np.testing.assert_array_equal(lvl_t.numpy(), np.asarray(lvl_j))
+    np.testing.assert_array_equal(diff_t.numpy(), np.asarray(diff_j))
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
+    counted = int(cnt_t.sum())
+    assert counted >= least and (least or counted == 0)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_dual_blur_plain_matches_pallas_and_gaussian_filter(shape):
     """Both blurs within rtol 2e-5 / atol 2e-2 of the Pallas kernel
