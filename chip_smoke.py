@@ -66,7 +66,20 @@ Phases, each of which raises (exit code != 0) on a failed check:
    (d) the profiles saved and loaded as files, a ``FovPipeline`` built from
    them, one 3-channel round under all three optics (median error <= 0.1
    px per channel); seed_classify, lm_fit and gather_cubes must launch
-   where the path calls them, and none in (a).
+   where the path calls them, and none in (a);
+7. the on-disk .dax path at bench.py's geometry: two 3-channel rounds of
+   60x2048x2048 (1800 spots in each of 750 and 647 under a vignette, 750
+   also under order-2 chromatic shifts; 500 beads in 488; the second
+   round drifted by (0.6, -1.4, 2.3) px) written as interleaved .dax
+   movies, read back bit for bit by the native loader, ``read_dax`` +
+   ``split_channels`` and ``read_raw_window`` + ``deinterleave_stack``;
+   ``warp_image`` against the 8-tap gather at full size; ``DaxProcesser``
+   (load, hot pixels, illumination, ``align_image`` drift within 0.1 px,
+   fits on the coordinate path (median <= 0.05 px) and after the
+   chromatic + drift image warp (<= 0.1 px), >= 90 % matched);
+   ``FovPipeline.process_round_raw`` and ``process_rounds`` equal to
+   ``process_round``; seed_classify, seed_pyramid, lm_fit and gather_cubes
+   must launch; reads, writes and every step timed.
 
 The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
@@ -78,7 +91,8 @@ gather_cubes`` build that kernel alone and run its checks and timing,
 nothing else (``--only level_stencil`` also runs from an older tree, which
 then reports no occupancy); ``--only gather_blocks`` times
 ``gaussian_fit.gather_blocks`` whole at every launch shape and checks
-nothing (so that it also times an older tree's).
+nothing (so that it also times an older tree's); ``--only dax_path`` builds
+the four kernels of phase 7 and runs that phase alone.
 """
 
 from __future__ import annotations
@@ -1723,6 +1737,425 @@ def _calibration_phase(torch, smi: str) -> dict:
     return rec
 
 
+#: the on-disk path's movies: bench.py's geometry in 3 channels (2 data
+#: channels, beads last), interleaved after 10 buffer frames
+DAX_CHANNELS = ("750", "647", "488")
+DAX_BUFFER = 10
+#: H1's content moves by this much against H0's (px, zxy)
+DAX_SHIFT = (0.6, -1.4, 2.3)
+#: the kernels the on-disk path runs
+DAX_PATH = ("seed_classify", "seed_pyramid", "lm_fit", "gather_cubes")
+
+
+def _matched_errors(torch, got, truth):
+    """Distance of each planted centre to its nearest fitted one, over the
+    centres matched within 1 px (bench.py's rule)."""
+    if not len(got):
+        return np.zeros(0), 0
+    d = torch.cdist(torch.as_tensor(np.asarray(truth, np.float32),
+                                    device=got.device).double(),
+                    got.double()).min(dim=1).values.cpu().numpy()
+    return d[d < 1.0], int((d < 1.0).sum())
+
+
+def _cold(path):
+    """Drop the file's clean pages from the page cache (POSIX_FADV_DONTNEED)
+    so the next read comes from the disk where the kernel honours it."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def _dax_phase(torch, smi: str) -> dict:
+    """The on-disk .dax path at bench.py's geometry: two rounds H0, H1 of
+    60x2048x2048 uint16 in 3 channels (750 and 647 with 1800 planted spots
+    each under a vignette (falloff 0.35), 750 also under order-2 chromatic
+    shifts up to ~2 px at the edge; 488 with 500 beads), H1's content moved
+    by DAX_SHIFT, rendered on the card, interleaved after 10 buffer frames
+    and written by ``io.write_dax`` (~1.6 GB a movie) into a directory of
+    the checkout's build/, removed at the end.  Gates, each a hard
+    failure: (1) ``load_dax_channels`` (native, built), ``read_dax`` +
+    ``split_channels`` and ``read_raw_window`` + ``deinterleave_stack`` on
+    the card equal the written stacks bit for bit; (2) ``warp_image`` by a
+    drift alone (with fractions exact in f32 at every coordinate) equals
+    ``warp_image_drift`` and the 8-tap ``trilinear_map_coordinates`` at the
+    shifted grid (rtol 1e-5, atol 1e-2); (3) ``DaxProcesser`` on H1: load, hot pixels, illumination,
+    drift against H0's corrected beads within 0.1 px of the planted drift
+    per axis with flag 0; (a) fits of the unwarped data channels corrected
+    by ``_correct_spot_coords`` and (b) fits after ``_warp_image`` with the
+    chromatic constants each match >= 90 % of the planted spots within 1
+    px, at a median error in H0's frame <= 0.05 px (a) and <= 0.1 px (b);
+    seed_classify, gather_cubes and lm_fit launch; (4)
+    ``FovPipeline.process_round_raw`` on H1's raw frame window equals
+    ``process_round`` on the loader's stacks and ``process_rounds`` on (H0,
+    H1) equals the two ``process_round`` calls (``torch.equal`` on every
+    field); seed_pyramid launches.  Every step is timed on the host clock
+    around ``torch.cuda.synchronize()``, the ``DaxProcesser`` steps after
+    one untimed pass of the same steps over H0."""
+    import shutil
+    import tempfile
+
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.config import (CorrectionConfig,
+                                                 ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.io import (interleave_channels,
+                                             load_dax_channels,
+                                             native_loader_available,
+                                             raw_frame_window, read_dax,
+                                             read_raw_window, split_channels,
+                                             write_dax)
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+    from imageanalysis3_tpu_torch.ops.corrections import deinterleave_stack
+    from imageanalysis3_tpu_torch.ops.warp import (monomial_exponents,
+                                                   trilinear_map_coordinates,
+                                                   warp_image,
+                                                   warp_image_drift)
+    from imageanalysis3_tpu_torch.pipeline import DaxProcesser, FovPipeline
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    if not native_loader_available():
+        raise AssertionError("dax path: the native loader did not build")
+    shape, chans, n_z = SHAPE, list(DAX_CHANNELS), SHAPE[0]
+    stack_bytes = int(np.prod(shape)) * 2
+    movie_bytes = (n_z * len(chans) + 2 * DAX_BUFFER) * stack_bytes // n_z
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < 3 * movie_bytes:
+        raise AssertionError(f"dax path: {free / 1e9:.2f} GB free under "
+                             f"{root}, need {3 * movie_bytes / 1e9:.2f}")
+    rec = {"shape": shape, "channels": chans, "movie_bytes": movie_bytes,
+           "seconds": {}, "launches": {}}
+    secs = rec["seconds"]
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # ---- the scene -------------------------------------------------------
+    rng = np.random.default_rng(21)
+    spots = [syn.sample_spot_params(shape, N_SPOTS, rng, min_separation=8.0,
+                                    height_range=(400.0, 3000.0),
+                                    sigma_jitter=0.0) for _ in range(2)]
+    beads = syn.sample_spot_params(shape, 500, rng, min_separation=14.0,
+                                   height_range=(2000.0, 5000.0),
+                                   sigma_jitter=0.0, background=120.0)
+    vig = syn.illumination_profile(shape[1:], falloff=0.35)
+    vig_t = torch.as_tensor(vig.astype(np.float32), device=dev)
+    half = np.asarray(shape, np.float64) / 2.0
+    scale = np.array([1.0 / np.prod(half ** np.asarray(e))
+                      for e in monomial_exponents(3, 2)])
+    consts = (np.asarray(syn.PLANTED_SHIFTS[0]) * scale[None]
+              ).astype(np.float32)
+    chrom = {"750": consts}
+    shift = np.asarray(DAX_SHIFT)
+
+    def imaged(ci, centers):
+        """Where channel ci images the sample points `centers`."""
+        if ci == 0:
+            return centers + syn._poly_shift_np(centers, consts, half)
+        return centers
+
+    tmp = tempfile.mkdtemp(prefix="dax_path_", dir=root)
+    try:
+        paths, stacks_np = [], []
+        for r, d in enumerate((np.zeros(3), shift)):
+            t0 = time.perf_counter()
+            chs = []
+            for ci, t in enumerate(spots):
+                im = syn.render_spots(shape, imaged(ci, t["centers"] + d),
+                                      t["heights"], background=150.0,
+                                      device=dev)
+                chs.append(syn.noisy_uint16(im, seed=40 + 10 * r + ci,
+                                            illumination=vig_t))
+                del im
+            im = syn.render_spots(shape, beads["centers"] + d,
+                                  beads["heights"], background=120.0,
+                                  device=dev)
+            chs.append(syn.noisy_uint16(im, seed=42 + 10 * r))
+            del im
+            host = [c.cpu().numpy() for c in chs]
+            del chs
+            movie = interleave_channels(host, buffer_frames=DAX_BUFFER)
+            secs[f"render_H{r}"] = time.perf_counter() - t0
+            path = os.path.join(tmp, f"H{r}", "Conv_zscan_00.dax")
+            os.makedirs(os.path.dirname(path))
+
+            def write():
+                write_dax(path, movie)
+                with open(path, "rb+") as fh:
+                    os.fsync(fh.fileno())
+            timed(f"write_H{r}", write)
+            del movie
+            paths.append(path)
+            stacks_np.append(np.stack(host))
+            del host
+        rec["write_GBps"] = movie_bytes / secs["write_H1"] / 1e9
+
+        # ---- 1. reads ---------------------------------------------------
+        want = stacks_np[1]
+        kw = dict(n_z=n_z, buffer_frames=DAX_BUFFER)
+        _cold(paths[1])
+        block = timed("read_native_cold", lambda: load_dax_channels(
+            paths[1], chans, chans, **kw))
+        if not np.array_equal(block, want):
+            raise AssertionError("dax path: load_dax_channels differs from "
+                                 "the written stacks")
+        block = timed("read_native_warm", lambda: load_dax_channels(
+            paths[1], chans, chans, **kw))
+        # into the same staging block again: no fresh pages to fault in
+        block = timed("read_native_reused", lambda: load_dax_channels(
+            paths[1], chans, chans, out=block, **kw))
+        if not np.array_equal(block, want):
+            raise AssertionError("dax path: load_dax_channels into a reused "
+                                 "block differs from the written stacks")
+        _cold(paths[1])
+
+        def numpy_read():
+            movie, _ = read_dax(paths[1], memmap=False)
+            return split_channels(movie, chans, chans, **kw)
+        split = timed("read_numpy_cold", numpy_read)
+        if not all(np.array_equal(a, b) for a, b in zip(split, want)):
+            raise AssertionError("dax path: read_dax + split_channels "
+                                 "differs from the written stacks")
+        del split
+        win = raw_frame_window(chans, chans, **kw)
+        _cold(paths[1])
+        raw = timed("read_raw_window_cold",
+                    lambda: read_raw_window(paths[1], win))
+        dein = timed("upload_deinterleave", lambda: deinterleave_stack(
+            torch.as_tensor(raw, device=dev), win.rel_starts, win.n_colors,
+            n_z))
+        if not torch.equal(dein, torch.as_tensor(want, device=dev)):
+            raise AssertionError("dax path: read_raw_window + "
+                                 "deinterleave_stack differs from the "
+                                 "written stacks")
+        del dein
+        rec["read_GBps"] = {
+            k: (3 * stack_bytes if k != "read_raw_window_cold"
+                else raw.nbytes) / secs[k] / 1e9
+            for k in ("read_native_cold", "read_native_warm",
+                      "read_native_reused", "read_numpy_cold",
+                      "read_raw_window_cold")}
+        print(f"dax path: write {secs['write_H1']:.3f} s "
+              f"({rec['write_GBps']:.2f} GB/s for {movie_bytes / 1e9:.3f} "
+              f"GB); reads "
+              f"{ {k: round(secs[k], 4) for k in rec['read_GBps']} } s, "
+              f"{ {k: round(v, 3) for k, v in rec['read_GBps'].items()} } "
+              f"GB/s; upload + deinterleave "
+              f"{secs['upload_deinterleave']:.4f} s; all equal to the "
+              f"written stacks  [{smi}]")
+
+        # ---- 2. warps at full size ---------------------------------------
+        # the gate's drift has fractions exact in f32 at every coordinate
+        # of the stack, so the 8-tap gather's weights (taken from the
+        # shifted coordinate, ~2e3 px) equal the per-axis ones (taken from
+        # the drift); at the planted drift the gather's coordinates carry
+        # f32 rounding of up to 1.2e-4 px, which is reported
+        im = torch.as_tensor(want[1], device=dev).to(torch.float32)
+        d_gate = torch.tensor([-0.625, 1.375, -2.25])
+        d = torch.tensor([-v for v in DAX_SHIFT], dtype=torch.float32)
+        ax = [torch.arange(n, dtype=torch.float32, device=dev)
+              for n in shape]
+
+        def gather_diff(warped, dd, gate):
+            worst = 0.0
+            for z0 in range(0, n_z, 6):
+                grid = torch.stack(torch.meshgrid(
+                    ax[0][z0:z0 + 6] - float(dd[0]), ax[1] - float(dd[1]),
+                    ax[2] - float(dd[2]), indexing="ij"))
+                ref = trilinear_map_coordinates(im, grid)
+                diff = (warped[z0:z0 + 6] - ref).abs()
+                worst = max(worst, float(diff.max()))
+                if gate and bool((diff > 1e-2 + 1e-5 * ref.abs()).any()):
+                    raise AssertionError(
+                        f"dax path: warp_image by {dd.tolist()} differs "
+                        f"from the 8-tap gather beyond rtol 1e-5 / atol "
+                        f"1e-2 at planes {z0}+ (max |diff| {worst})")
+                del grid, ref, diff
+            return worst
+
+        warped = warp_image(im, d_gate)
+        if not torch.equal(warped, warp_image_drift(im, d_gate)):
+            raise AssertionError("dax path: warp_image(im, d) differs from "
+                                 "warp_image_drift")
+        rec["warp_max_abs_err"] = gather_diff(warped, d_gate, True)
+        warped = timed("warp_image_drift", lambda: warp_image(im, d))
+        rec["warp_max_abs_err_planted"] = gather_diff(warped, d, False)
+        timed("warp_image_chromatic", lambda: warp_image(
+            im, d, consts, half.astype(np.float32)))
+        print(f"dax path: warp_image by {d_gate.tolist()} equal to "
+              f"warp_image_drift and within rtol 1e-5 / atol 1e-2 of the "
+              f"8-tap gather (max |diff| {rec['warp_max_abs_err']:.3g}); "
+              f"at the planted drift max |diff| "
+              f"{rec['warp_max_abs_err_planted']:.3g} (the gather's f32 "
+              f"coordinates); warp_image (drift) "
+              f"{secs['warp_image_drift']:.4f} s, with order-2 chromatic "
+              f"constants {secs['warp_image_chromatic']:.4f} s  [{smi}]")
+        del im, warped
+
+        # ---- 3. DaxProcesser on H1 ---------------------------------------
+        proc_kw = dict(all_channels=chans, single_im_size=shape,
+                       num_buffer_frames=DAX_BUFFER)
+        ref_proc = DaxProcesser(paths[0], correction_channels=["488"],
+                                **proc_kw)
+        ref_proc._load_image()._corr_hot_pixels_3D()
+        ref_beads = ref_proc.ims["488"]
+        del ref_proc
+        fit_kw = dict(th_seed=TH_SEED, max_num_seeds=2048)
+        data = ["750", "647"]
+        # one untimed pass over H0 takes every step's first-call costs
+        # (cuFFT plans, the allocator's growth, first kernel launches)
+        warm = DaxProcesser(paths[0], **proc_kw)
+        warm._load_image()._corr_hot_pixels_3D()._corr_illumination(
+            {"750": vig, "647": vig})
+        warm._calculate_drift(ref_beads, drift_channel="488")
+        warm._fit_spots(channels=data, **fit_kw)
+        warm._warp_image(channels=data, chromatic_constants=chrom)
+        del warm
+        proc = DaxProcesser(paths[1], **proc_kw)
+        timed("step_load_image", proc._load_image)
+        timed("step_hot_pixels", proc._corr_hot_pixels_3D)
+        timed("step_illumination", lambda: proc._corr_illumination(
+            {"750": vig, "647": vig}))
+        drift = timed("step_calculate_drift", lambda: proc._calculate_drift(
+            ref_beads, drift_channel="488")).cpu().numpy()
+        del ref_beads
+        rec["drift"], rec["drift_flag"] = drift.tolist(), proc.drift_flag
+        derr = np.abs(drift + shift)
+        print(f"dax path: drift {drift.round(4).tolist()} flag "
+              f"{proc.drift_flag} (planted {(-shift).tolist()}, |error| "
+              f"{derr.round(4).tolist()} px)")
+        if derr.max() > 0.1 or proc.drift_flag != 0:
+            raise AssertionError(f"dax path: drift {drift} (flag "
+                                 f"{proc.drift_flag}) vs planted {-shift}")
+        rec["accuracy"] = {}
+
+        def check(label, fits, coords_of, limit):
+            out = {}
+            for ci, ch in enumerate(data):
+                res = fits[ch]
+                got = coords_of(ch, res.spots[res.valid][:, 1:4])
+                errs, n_m = _matched_errors(torch, got, spots[ci]["centers"])
+                med = float(np.median(errs)) if len(errs) else float("nan")
+                out[ch] = {"median_err_px": med, "matched": n_m,
+                           "n_valid": int(res.valid.sum())}
+            rec["accuracy"][label] = out
+            print(f"dax path ({label}): {out}")
+            for ch, o in out.items():
+                if o["matched"] < 0.9 * N_SPOTS or \
+                        not o["median_err_px"] <= limit:
+                    raise AssertionError(
+                        f"dax path ({label}), {ch}: {o['matched']} of "
+                        f"{N_SPOTS} matched, median error "
+                        f"{o['median_err_px']} px (limit {limit})")
+
+        reset_kernel_launches()
+        fits = timed("step_fit_spots", lambda: proc._fit_spots(
+            channels=data, **fit_kw))
+        rec["launches"]["fit_unwarped"] = kernel_launches()
+        check("a: coordinates", fits,
+              lambda ch, c: proc._correct_spot_coords(c, ch, chrom), 0.05)
+        timed("step_warp_image", lambda: proc._warp_image(
+            channels=data, chromatic_constants=chrom))
+        reset_kernel_launches()
+        fits = timed("step_fit_spots_warped", lambda: proc._fit_spots(
+            channels=data, **fit_kw))
+        rec["launches"]["fit_warped"] = counts = kernel_launches()
+        check("b: image warp", fits, lambda ch, c: c, 0.1)
+        for name in ("seed_classify", "gather_cubes", "lm_fit"):
+            if min(rec["launches"][k][name]
+                   for k in ("fit_unwarped", "fit_warped")) < 1:
+                raise AssertionError(f"dax path: {name} did not launch in "
+                                     f"the DaxProcesser fits: "
+                                     f"{rec['launches']}")
+        del proc, fits
+
+        # ---- 4. the round entries ----------------------------------------
+        cfg = ExperimentConfig(
+            image_size=shape, correction=CorrectionConfig(),
+            seed=SeedConfig(th_seed=TH_SEED, max_num_seeds=2048),
+            fit=FitConfig())
+        chrom3 = np.zeros((3, 3, 10), np.float32)
+        chrom3[0] = consts
+        pipe = FovPipeline(cfg, n_channels=3, drift_channel_index=2,
+                           fit_channel_indices=(0, 1),
+                           illumination=np.stack([vig, vig,
+                                                  np.ones_like(vig)]),
+                           chromatic_constants=chrom3, image_shape=shape)
+        ref_spec = pipe.prepare_reference(pipe.correct_reference(
+            load_dax_channels(paths[0], chans, chans, **kw)))
+        block0 = load_dax_channels(paths[0], chans, chans, **kw)
+        raw_t, direct_t = [], []
+        pipe.process_round_raw(raw, ref_spec, win.rel_starts, win.n_colors)
+        for k in range(3):
+            reset_kernel_launches()
+            res_raw = timed("round_raw", lambda: pipe.process_round_raw(
+                raw, ref_spec, win.rel_starts, win.n_colors))
+            raw_t.append(secs["round_raw"])
+            rec["launches"]["process_round_raw"] = kernel_launches()
+            res = timed("round", lambda: pipe.process_round(block,
+                                                            ref_spec))
+            direct_t.append(secs["round"])
+        secs["round_raw"] = statistics.median(raw_t)
+        secs["round"] = statistics.median(direct_t)
+        for f in res._fields:
+            if not torch.equal(getattr(res_raw, f), getattr(res, f)):
+                raise AssertionError(f"dax path: process_round_raw.{f} "
+                                     f"differs from process_round's")
+        for name in ("seed_pyramid", "lm_fit", "gather_cubes"):
+            if rec["launches"]["process_round_raw"][name] < 1:
+                raise AssertionError(f"dax path: {name} did not launch in "
+                                     f"process_round_raw: {rec['launches']}")
+        rounds = {}
+        for ci, ch in enumerate(data):
+            errs, n_m = _matched_errors(
+                torch, res.spots[ci][res.valid[ci]][:, 1:4],
+                spots[ci]["centers"])
+            rounds[ch] = {"median_err_px": float(np.median(errs)),
+                          "matched": n_m}
+        rec["round_accuracy"] = rounds
+        res0 = pipe.process_round(block0, ref_spec)
+        both = torch.stack([torch.as_tensor(b, device=dev)
+                            for b in (block0, block)])
+        del block0
+        reset_kernel_launches()
+        many = timed("process_rounds", lambda: pipe.process_rounds(
+            both, ref_spec))
+        rec["launches"]["process_rounds"] = kernel_launches()
+        for r, one in enumerate((res0, res)):
+            for f in one._fields:
+                if not torch.equal(getattr(many, f)[r], getattr(one, f)):
+                    raise AssertionError(f"dax path: process_rounds round "
+                                         f"{r} {f} differs from "
+                                         f"process_round's")
+        del both, many, raw, block
+        print(f"dax path: process_round_raw {secs['round_raw']:.4f} s/round "
+              f"{[round(t, 4) for t in raw_t]}, process_round (loader "
+              f"stacks) {secs['round']:.4f} s/round "
+              f"{[round(t, 4) for t in direct_t]}, equal on every field; "
+              f"process_rounds (H0, H1) {secs['process_rounds']:.4f} s, "
+              f"equal to the two rounds; round spots {rounds}; drift "
+              f"{res.drift.cpu().numpy().round(4).tolist()}  [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["total_launches"] = {k: sum(c[k] for c in rec["launches"].values())
+                             for k in DAX_PATH}
+    print(f"dax path: steps "
+          f"{ {k: round(v, 4) for k, v in secs.items()} } s; launches "
+          f"{rec['launches']}  [{smi}]")
+    return rec
+
+
 def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
     """One main-path round under torch.profiler: device time by kernel and
     the device's busy share of the round's wall time."""
@@ -1760,12 +2193,14 @@ def main(argv=None) -> int:
                     help="also profile one round (device time by kernel)")
     ap.add_argument("--only", choices=["seed_classify", "seed_pyramid",
                                        "lm_fit", "dual_blur", "level_stencil",
-                                       "gather_cubes", "gather_blocks"],
+                                       "gather_cubes", "gather_blocks",
+                                       "dax_path"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
                          "gaussian_fit.gather_blocks whole and checks "
-                         "nothing")
+                         "nothing; dax_path builds the on-disk path's "
+                         "kernels and runs that phase alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -1799,8 +2234,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"peaks used for bounds: {peaks[2]}")
-    only_kernel = {"gather_blocks": "gather_cubes"}.get(args.only, args.only)
-    build_s = _build.build([only_kernel] if args.only else _build.KERNELS)
+    only = {"gather_blocks": ["gather_cubes"], "dax_path": list(DAX_PATH),
+            None: list(_build.KERNELS)}.get(args.only, [args.only])
+    build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
     for name, log in _build.build_logs.items():
         for line in _ptxas_report(log):
@@ -1808,6 +2244,9 @@ def main(argv=None) -> int:
     record.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s)
     dev = torch.device("cuda")
+    if args.only == "dax_path":
+        _dax_phase(torch, smi)
+        return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
     shape = SHAPE
@@ -2006,6 +2445,11 @@ def main(argv=None) -> int:
 
     # ---- 6. the bead-calibration path ---------------------------------------
     record["calibration"] = calib = _calibration_phase(torch, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 7. the on-disk .dax path -------------------------------------------
+    record["dax_path"] = dax = _dax_phase(torch, smi)
+    dax_launches = dax["total_launches"]
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -2013,13 +2457,15 @@ def main(argv=None) -> int:
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:861",
          "launches": total["seed_pyramid"], "max_abs_err": pyr_err,
          "ms": pyr_ms, "plain_ms": pyr_plain_ms, "bound_ms": pyr_bound[0],
-         "bound_by": pyr_bound[1], "library_ms": None},
+         "bound_by": pyr_bound[1], "library_ms": None,
+         "dax_path_launches": dax_launches["seed_pyramid"]},
         {"name": "lm_fit", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/lm_fit.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_lm.py:225",
          "launches": total["lm_fit"], "max_abs_err": lm_err,
          "ms": lm_ms, "plain_ms": lm_plain_ms, "bound_ms": lm_bound[0],
          "bound_by": lm_bound[1], "library_ms": None,
+         "dax_path_launches": dax_launches["lm_fit"],
          "shapes": {k: {f: v[f] for f in ("spots", "px", "iters", "ms",
                                           "plain_ms", "bound_ms",
                                           "max_abs_err")}
@@ -2030,7 +2476,8 @@ def main(argv=None) -> int:
          "launches": e2e["seed_classify_launches"],
          "max_abs_err": cls["max_abs_err"], "ms": cls_ms,
          "plain_ms": cls_plain_ms, "bound_ms": cls_bound[0],
-         "bound_by": cls_bound[1], "library_ms": None},
+         "bound_by": cls_bound[1], "library_ms": None,
+         "dax_path_launches": dax_launches["seed_classify"]},
         {"name": "dual_blur", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/dual_blur.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:280",
@@ -2057,6 +2504,7 @@ def main(argv=None) -> int:
          **{k: gather["ball"]["slice1"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms")},
+         "dax_path_launches": dax_launches["gather_cubes"],
          "entries": {"ball": gather["ball"], "cubes": gather["cubes"],
                      "gather_blocks": gather["gather_blocks"]}},
     ]

@@ -4,6 +4,45 @@
 entries count as its launches) beside their plain PyTorch versions."""
 
 from . import gather_kernel, lm_kernel, seed_kernels
+from .corrections import (bleedthrough_unmix, correct_channel_stack,
+                          deinterleave_stack, illumination_correct,
+                          remove_hot_pixels, z_shift_correct)
+from .drift import (align_image, consensus_drift, fft3d_from2d,
+                    generate_drift_crops, prepare_ref_spectrum,
+                    subpixel_phase_correlation,
+                    subpixel_phase_correlation_prepared)
+from .filters import (counting_median, gaussian_deconvolution,
+                      gaussian_filter, gaussian_highpass, maximum_filter,
+                      minimum_filter)
+from .gaussian_fit import (FitResult, find_image_background, fit_fov_image,
+                           get_centers, gfit_fast, iter_fit_seed_points,
+                           select_sparse_centers)
+from .matching import align_beads, check_paired_centers, find_paired_centers
+from .profiles import (IlluminationProfiler, counting_quantile,
+                       fit_spot_pair_regressions, generate_bleed_profile,
+                       generate_chromatic_constants, invert_mixing_profile)
+from .seeding import Seeds, get_seeds
+from .warp import (fit_chromatic_constants, trilinear_map_coordinates,
+                   warp_image, warp_image_drift, warp_spot_coords)
+
+__all__ = [
+    "remove_hot_pixels", "z_shift_correct", "illumination_correct",
+    "bleedthrough_unmix", "correct_channel_stack", "deinterleave_stack",
+    "subpixel_phase_correlation", "generate_drift_crops",
+    "consensus_drift", "align_image", "fft3d_from2d",
+    "prepare_ref_spectrum", "subpixel_phase_correlation_prepared",
+    "gaussian_filter", "maximum_filter", "minimum_filter",
+    "gaussian_highpass", "gaussian_deconvolution", "counting_median",
+    "iter_fit_seed_points", "fit_fov_image", "get_centers",
+    "select_sparse_centers", "find_image_background", "FitResult",
+    "gfit_fast", "find_paired_centers", "check_paired_centers",
+    "align_beads", "IlluminationProfiler", "generate_bleed_profile",
+    "generate_chromatic_constants", "counting_quantile",
+    "fit_spot_pair_regressions", "invert_mixing_profile", "get_seeds",
+    "Seeds", "warp_image", "warp_image_drift", "warp_spot_coords",
+    "fit_chromatic_constants", "trilinear_map_coordinates",
+    "kernel_launches", "reset_kernel_launches",
+]
 
 
 def kernel_launches() -> dict:

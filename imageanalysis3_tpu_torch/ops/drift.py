@@ -6,6 +6,8 @@ The counterpart of ``imageanalysis3_tpu/ops/drift.py``.  Behavior targets
     (skimage.registration.phase_cross_correlation, upsample_factor=100)
   * 8-crop consensus aligner        correction_tools/alignment.py:527-695
   * crop generation                 correction_tools/alignment.py:87-135
+  * 2D-projection rough drift        alignment_tools.py:330-353
+    (fft3d_from2d)
 
 Every function takes one (Z, X, Y) view or a batch (K, Z, X, Y) of crops;
 the FFTs run over the last three dims and the Guizar-Sicairos subpixel
@@ -20,6 +22,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import as_tensor
 from .filters import full_f32_matmul
 
 _DIMS = (-3, -2, -1)
@@ -259,3 +262,71 @@ def consensus_drift(drifts: torch.Tensor, drift_diff_th: float = 1.0,
     out = torch.where(ok, good_mean, fallback)
     flag = torch.where(ok, 0, 1).to(torch.int32)
     return out, flag
+
+
+def _gather_crops(im: torch.Tensor, boxes) -> torch.Tensor:
+    """Stack fixed-size crops (static start indices) into a (K, z, x, y)
+    batch."""
+    return torch.stack([im[b[0][0]:b[0][1], b[1][0]:b[1][1],
+                           b[2][0]:b[2][1]] for b in boxes])
+
+
+def align_image(src_im, ref_im, crops: Optional[np.ndarray] = None,
+                drift_size: Optional[int] = None,
+                upsample_factor: int = 100,
+                normalization: Optional[str] = None,
+                drift_diff_th: float = 1.0,
+                min_good_drifts: int = 3,
+                subtract_mean: bool = True,
+                window: Optional[str] = "hann_xy",
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Crop-consensus drift of `src_im` against `ref_im` -> (drift, flag).
+
+    Reference correction_tools/alignment.py:527-695 (align_image with
+    use_autocorr=True): every crop registers at once (one batched
+    :func:`subpixel_phase_correlation`), then :func:`consensus_drift`
+    votes.  Crops are mean-subtracted and xy-Hann-windowed by default, as
+    in the JAX package.  NumPy input goes to `device` (default the card).
+    """
+    src = as_tensor(src_im, device)
+    ref = as_tensor(ref_im, src.device)
+    if crops is None:
+        crops = generate_drift_crops(tuple(src.shape), drift_size)
+    boxes = [[[int(v) for v in ax] for ax in b] for b in crops]
+    drifts = subpixel_phase_correlation(
+        _gather_crops(ref.to(torch.float32), boxes),
+        _gather_crops(src.to(torch.float32), boxes),
+        upsample_factor=int(upsample_factor), normalization=normalization,
+        subtract_mean=subtract_mean, window=window)
+    return consensus_drift(drifts, drift_diff_th=drift_diff_th,
+                           min_good_drifts=min_good_drifts)
+
+
+def _corr2d_peak(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Signed integer peak (2,) of the phase correlation of two 2D views;
+    the first maximum wins, as ``jnp.argmax`` picks it."""
+    R = torch.fft.fftn(a) * torch.conj(torch.fft.fftn(b))
+    R = R / R.abs().clamp_min(1e-20)
+    cc = torch.fft.ifftn(R).abs()
+    flat = int(cc.reshape(-1).argmax())
+    n0, n1 = cc.shape
+    pk = torch.tensor([flat // n1, flat % n1], dtype=torch.float32)
+    size = torch.tensor([n0, n1], dtype=torch.float32)
+    return torch.where(pk > size / 2, pk - size, pk)
+
+
+def fft3d_from2d(src_im, ref_im, device=None) -> torch.Tensor:
+    """Integer 3D drift (3,) from two 2D phase correlations of projections.
+
+    Stage 1: max-project z -> (dx, dy); stage 2: roll src by that integer
+    xy drift, max-project y (axis 2) -> dz.  Reference
+    alignment_tools.py:330-353, with phase correlation in place of the
+    blur-normalised fftconvolve, as the JAX package has it.
+    """
+    src = as_tensor(src_im, device).to(torch.float32)
+    ref = as_tensor(ref_im, src.device).to(torch.float32)
+    dxy = _corr2d_peak(ref.amax(dim=0), src.amax(dim=0))
+    src_rolled = torch.roll(src, shifts=(int(dxy[0]), int(dxy[1])),
+                            dims=(1, 2))
+    dz = _corr2d_peak(ref.amax(dim=2), src_rolled.amax(dim=2))[0]
+    return torch.stack([dz, dxy[0], dxy[1]]).to(src.device)

@@ -221,6 +221,16 @@ def gaussian_highpass(im: torch.Tensor, sigma: float = 5.0,
     return torch.where(lowpass > imf, torch.zeros_like(imf), imf - lowpass)
 
 
+def gaussian_deconvolution(im: torch.Tensor, gfilt_size: float = 2.0,
+                           niter: int = 1) -> torch.Tensor:
+    """Naive deconvolution: `niter` times, divide by the image's own
+    Gaussian blur (reference correction_tools/filter.py:4-11)."""
+    out = im.to(torch.float32)
+    for _ in range(niter):
+        out = out / gaussian_filter(out, gfilt_size)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Medians: binary search over the quarter-integer value domain with counting
 # passes instead of a sort -- exact for uint16 camera data.

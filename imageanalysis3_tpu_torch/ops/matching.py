@@ -9,6 +9,8 @@ Behavior targets (reference ImageAnalysis3):
   * neighbour-consistency check    spot_tools/matching.py:224-287
     (check_paired_centers: expected shift from the neighbourhood, drop
     pairs deviating > mean + outlier_sigma * std)
+  * bead-match drift               correction_tools/alignment.py:139-216
+    (align_beads, use_fft=True)
 
 Fixed-capacity masked centre tables; pairing is one (N, M) distance matrix
 with row/column-uniqueness votes; the Delaunay neighbourhood is the k
@@ -21,6 +23,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from .drift import fft3d_from2d
 
 
 class PairedCenters(NamedTuple):
@@ -89,3 +93,27 @@ def check_paired_centers(pairs: PairedCenters, outlier_sigma: float = 1.5,
         / n_kept.clamp_min(1)
     return PairedCenters(drift=drift, tar=pairs.tar, ref=pairs.ref,
                          mask=keep, n_pairs=n_kept.to(torch.int32))
+
+
+def align_beads(tar_cts: torch.Tensor, tar_valid: torch.Tensor,
+                ref_cts: torch.Tensor, ref_valid: torch.Tensor,
+                tar_im, ref_im, match_distance_th: float = 2.0,
+                outlier_sigma: float = 1.5, check: bool = True,
+                k: int = 6) -> PairedCenters:
+    """Bead-match drift: FFT rough alignment (:func:`fft3d_from2d`), unique
+    pairing, neighbour check, mean residual drift; the checked pairing
+    only where more than 3 pairs survive it, else the unchecked one.
+    Returns drift with ``tar + drift ~= ref``."""
+    rough = fft3d_from2d(tar_im, ref_im, device=tar_cts.device)
+    pairs = find_paired_centers(tar_cts, tar_valid, ref_cts, ref_valid,
+                                rough.to(tar_cts.dtype),
+                                cutoff=match_distance_th)
+    if not check:
+        return pairs
+    checked = check_paired_centers(pairs, outlier_sigma, k=k)
+    use = checked.n_pairs > 3
+    return PairedCenters(
+        drift=torch.where(use, checked.drift, pairs.drift),
+        tar=pairs.tar, ref=pairs.ref,
+        mask=torch.where(use, checked.mask, pairs.mask),
+        n_pairs=torch.where(use, checked.n_pairs, pairs.n_pairs))

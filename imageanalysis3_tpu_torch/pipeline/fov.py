@@ -22,7 +22,7 @@ import torch
 
 from ..config import ExperimentConfig
 from ..device import resolve_device
-from ..ops.corrections import correct_channel_stack
+from ..ops.corrections import correct_channel_stack, deinterleave_stack
 from ..ops.drift import (consensus_drift, generate_drift_crops,
                          prepare_ref_spectrum,
                          subpixel_phase_correlation_prepared)
@@ -249,3 +249,33 @@ class FovPipeline:
         stack, for sequential drift mode where each round is the next
         round's registration target."""
         return self._process_full(ims, ref_im)
+
+    def process_round_raw(self, raw, ref_im, rel_starts, n_colors,
+                          donate: bool = True) -> RoundResult:
+        """Process one round from its RAW interleaved frame window
+        (``io.dax.read_raw_window``): the uint16 window goes up to the
+        device as it is and is de-interleaved there
+        (``ops.corrections.deinterleave_stack``, strided slices), so the
+        host input path is one sequential read.  `rel_starts` / `n_colors`
+        come from ``io.dax.raw_frame_window`` for the round's channel
+        layout.  `donate` is accepted for the JAX package's signature: the
+        round holds no reference to `raw` once it returns either way."""
+        del donate
+        raw = torch.as_tensor(raw, device=self.device)
+        ims = deinterleave_stack(raw, tuple(int(s) for s in rel_starts),
+                                 int(n_colors), self.image_shape[0])
+        return self.process_round(ims, ref_im)
+
+    def process_rounds(self, ims, ref_im, mesh=None) -> RoundResult:
+        """Process (R, C, Z, X, Y) rounds one after another -> a
+        RoundResult whose fields stack the rounds' along a leading axis.
+        The mesh form (rounds data-parallel over cards) is not ported yet
+        (ROADMAP queue 1 item 12)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "process_rounds over a mesh is not ported (ROADMAP queue 1 "
+                "item 12: parallel/ as torch.distributed)")
+        ims = torch.as_tensor(ims, device=self.device)
+        ref = torch.as_tensor(ref_im, device=self.device)
+        outs = [self.process_round(im, ref) for im in ims]
+        return RoundResult(*(torch.stack(f) for f in zip(*outs)))

@@ -9,17 +9,61 @@ codebook, homolog walks, distractors, beads and drifts) with the same
 draws.  The
 noise comes from a seeded ``torch.Generator``, so its bits differ from the
 JAX package's; tests that compare the two packages make their noise with
-NumPy and hand it to both.
+NumPy and hand it to both.  The NumPy ground-truth factory
+(:func:`render_gaussian_spots`, :func:`random_spot_field`,
+:func:`make_synthetic_fov`) and the on-disk experiment writer
+(:func:`write_synthetic_experiment`, on the port's ``io.dax``) are copies of
+the JAX package's: one seed writes the same bytes in either package.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import csv
+import os
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .io.dax import interleave_channels, write_dax
 from .ops.filters import gaussian_filter
+
+
+def render_gaussian_spots(shape: Tuple[int, int, int],
+                          centers: np.ndarray,
+                          heights: np.ndarray,
+                          sigmas: np.ndarray,
+                          background: float = 100.0,
+                          truncate: float = 8.0) -> np.ndarray:
+    """Render axis-aligned 3D Gaussian spots onto a constant background.
+
+    centers: (N, 3) zxy float px; heights: (N,); sigmas: (N, 3) px.
+    Equivalent ground-truth generator to the reference's ``add_source``
+    (External/Fitting_v4.py:139-161), vectorized per spot window.
+    """
+    im = np.full(shape, float(background), dtype=np.float64)
+    for c, h, s in zip(np.atleast_2d(centers), np.atleast_1d(heights),
+                       np.atleast_2d(sigmas)):
+        rad = np.maximum((truncate * s).astype(int), 2)
+        lo = np.maximum(np.floor(c - rad).astype(int), 0)
+        hi = np.minimum(np.ceil(c + rad).astype(int) + 1, shape)
+        if np.any(lo >= hi):
+            continue
+        zz, xx, yy = np.meshgrid(*[np.arange(l, u) for l, u in zip(lo, hi)],
+                                 indexing="ij")
+        d2 = (((zz - c[0]) / s[0]) ** 2 + ((xx - c[1]) / s[1]) ** 2
+              + ((yy - c[2]) / s[2]) ** 2)
+        im[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] += h * np.exp(-0.5 * d2)
+    return im
+
+
+def poisson_camera_noise(im: np.ndarray, rng: np.random.Generator,
+                         read_noise: float = 2.0) -> np.ndarray:
+    """Shot + read noise, clipped to the uint16 range."""
+    noisy = rng.poisson(np.maximum(im, 0)).astype(np.float64)
+    noisy += rng.normal(0.0, read_noise, size=im.shape)
+    return np.clip(noisy, 0, 65535)
 
 
 def sample_spot_params(shape: Tuple[int, int, int],
@@ -280,6 +324,18 @@ def make_e2e_scene(shape: Tuple[int, int, int] = E2E_SHAPE,
 # ---------------------------------------------------------------------------
 
 
+def random_spot_field(shape: Tuple[int, int, int],
+                      n_spots: int,
+                      rng: np.random.Generator,
+                      **kwargs) -> Tuple[np.ndarray, dict]:
+    """A stack with `n_spots` random Gaussians; returns (image, truth dict)."""
+    truth = sample_spot_params(shape, n_spots, rng, **kwargs)
+    im = render_gaussian_spots(tuple(int(s) for s in shape),
+                               truth["centers"], truth["heights"],
+                               truth["sigmas"], truth["background"])
+    return im, truth
+
+
 def illumination_profile(shape_xy: Tuple[int, int],
                          falloff: float = 0.35,
                          rng: Optional[np.random.Generator] = None
@@ -304,6 +360,23 @@ def bleed_matrix(channels: int = 3, leak: float = 0.08,
     return m
 
 
+def chromatic_shift_field(shape: Tuple[int, int, int],
+                          coeffs_zxy: Sequence[np.ndarray]) -> np.ndarray:
+    """Order-2 polynomial shift field, (3, Z, X, Y).
+
+    Matches the reference's chromatic profile construction
+    (correction_tools/chromatic.py:415 generate_polynomial_data):
+    shift_d(z,x,y) = sum over monomials {1,z,x,y,z^2,x^2,y^2,zx,zy,xy}.
+    """
+    z, x, y = [np.arange(s, dtype=np.float64) for s in shape]
+    zz, xx, yy = np.meshgrid(z, x, y, indexing="ij")
+    mono = np.stack([np.ones_like(zz), zz, xx, yy, zz * zz, xx * xx,
+                     yy * yy, zz * xx, zz * yy, xx * yy])
+    out = np.stack([np.tensordot(np.asarray(c), mono, axes=1)
+                    for c in coeffs_zxy])
+    return out
+
+
 def _poly_shift_np(coords: np.ndarray, constants: np.ndarray,
                    ref_center: np.ndarray, max_order: int = 2) -> np.ndarray:
     """Order-`max_order` polynomial shift field at (N, 3) coords, using the
@@ -321,6 +394,218 @@ def _poly_shift_np(coords: np.ndarray, constants: np.ndarray,
         cols.append(c)
     X = np.stack(cols, axis=-1)                       # (N, n_mono)
     return X @ np.asarray(constants, np.float64).T    # (N, 3)
+
+
+@dataclass
+class SyntheticFov:
+    """A synthetic multi-round, multi-channel field of view with ground truth."""
+
+    ims: np.ndarray                    # (rounds, channels, Z, X, Y) uint16-range f32
+    truth: list = field(default_factory=list)   # per (round, channel) truth dicts
+    drifts: np.ndarray = None          # (rounds, 3) true zxy drifts vs round 0
+    illumination: np.ndarray = None    # (channels, X, Y)
+    bleed: np.ndarray = None           # (C, C) mixing matrix applied
+
+
+def write_synthetic_experiment(root: str,
+                               shape=(12, 128, 128),
+                               n_rounds: int = 3,
+                               n_regions_per_round: int = 2,
+                               n_spots: int = 12,
+                               seed: int = 0,
+                               drift_scale: float = 2.0,
+                               buffer_frames: int = 4,
+                               fov_names: Sequence[str] = ("Conv_zscan_00.dax",),
+                               channels: Sequence[str] = ("750", "647", "488"),
+                               illumination_falloff: float = 0.0,
+                               bleed_leak: float = 0.0,
+                               chromatic_constants: Optional[dict] = None,
+                               corr_channels: Sequence[str] = ("750", "647"),
+                               calibration_rounds: bool = False,
+                               n_beads: Optional[int] = None,
+                               ) -> dict:
+    """Write a miniature on-disk experiment: H*-prefixed hyb folders of
+    interleaved .dax movies + a Color_Usage.csv, mirroring the reference's
+    folder layout (get_img_info.py:12-33, 96-167).  The last channel carries
+    fiducial beads (shared across rounds, drifted); each earlier channel
+    carries one 'u<N>' unique region per round.  Returns ground truth:
+    {'drifts': (R,3), 'regions': {region_id: {'centers', 'channel'}},
+     'channels': [...], 'folders': [...]}.
+
+    Optics distortions (all optional, applied in physical order — chromatic
+    spot displacement, per-channel vignetting, detection bleed mixing):
+      * ``illumination_falloff``: per-channel vignetting profile strength;
+      * ``bleed_leak``: off-diagonal mixing among ``corr_channels``;
+      * ``chromatic_constants``: {channel: (3, n_mono)} polynomial shift
+        fields (about the image center) displacing that channel's spots.
+    With ``calibration_rounds``, extra non-data folders are written the way
+    real experiments calibrate: one single-labeled round per corr channel
+    (``truth['bleed_folders']``) and one multi-color bead round
+    (``truth['chromatic_folder']``), both carrying the same distortions, so
+    tests can regenerate the profiles from the experiment's own data
+    (reference Generate_bleedthrough_correction /
+    Generate_chromatic_abbrevation inputs).
+    """
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    channels = list(channels)
+    n_data_ch = len(channels) - 1
+    corr_idx = [channels.index(c) for c in corr_channels if c in channels]
+    ref_center = np.asarray(shape, np.float64) / 2.0
+    chromatic_constants = chromatic_constants or {}
+    drifts = np.vstack([np.zeros(3),
+                        rng.uniform(-drift_scale, drift_scale,
+                                    size=(n_rounds - 1, 3))])
+    # a denser bead field than the data channels: registration accuracy
+    # scales with bead count (real fiducial channels carry hundreds)
+    if n_beads is None:
+        n_beads = max(2 * n_spots, 16)
+    _, bead_truth = random_spot_field(shape, n_beads, rng,
+                                      min_separation=10.0,
+                                      height_range=(2000.0, 6000.0))
+    # per-channel vignetting (0 falloff => exactly flat)
+    illum = {}
+    for ci, ch in enumerate(channels):
+        f = illumination_falloff * (1.0 + 0.15 * ci)
+        illum[ch] = (illumination_profile(shape[1:], falloff=f)
+                     if illumination_falloff else
+                     np.ones(shape[1:], np.float64))
+    # detection mixing among corr channels (observed = M @ true)
+    m = np.eye(len(corr_idx))
+    if bleed_leak:
+        m = bleed_matrix(len(corr_idx), leak=bleed_leak, rng=rng)
+    truth = {"drifts": drifts, "regions": {}, "channels": list(channels),
+             "folders": [], "illumination": illum, "bleed_matrix": m,
+             "chromatic": dict(chromatic_constants),
+             "corr_channels": list(corr_channels)}
+
+    def displaced(centers: np.ndarray, ch: str) -> np.ndarray:
+        if ch in chromatic_constants:
+            return centers + _poly_shift_np(
+                centers, chromatic_constants[ch], ref_center)
+        return centers
+
+    def distort_and_write(folder: str, stacks, row_entries):
+        """Apply vignetting + bleed mixing, interleave, write."""
+        obs = [im * illum[ch][None] for im, ch in zip(stacks, channels)]
+        if bleed_leak and len(corr_idx) > 1:
+            mixed = [sum(m[a, b] * obs[corr_idx[b]]
+                         for b in range(len(corr_idx)))
+                     for a in range(len(corr_idx))]
+            for a, ci in enumerate(corr_idx):
+                obs[ci] = mixed[a]
+        movie = interleave_channels(
+            [np.clip(im, 0, 65535).astype(np.uint16) for im in obs],
+            buffer_frames=buffer_frames)
+        os.makedirs(folder, exist_ok=True)
+        for fov in fov_names:
+            write_dax(os.path.join(folder, fov), movie)
+        usage_rows.append([os.path.basename(folder)] + row_entries)
+
+    usage_rows = []
+    rid = 0
+    for r in range(n_rounds):
+        folder = os.path.join(root, f"H{r}R{r}")
+        truth["folders"].append(folder)
+        row_entries = []
+        stacks = []
+        for c in range(n_data_ch):
+            rid += 1
+            _, t = random_spot_field(shape, n_spots, rng,
+                                     min_separation=14.0,
+                                     height_range=(1500.0, 5000.0))
+            centers = displaced(t["centers"] + drifts[r], channels[c])
+            im = render_gaussian_spots(shape, centers, t["heights"],
+                                       t["sigmas"], background=120.0)
+            stacks.append(im)
+            truth["regions"][rid] = {"centers": t["centers"],
+                                     "heights": t["heights"],
+                                     "channel": channels[c], "round": r}
+            row_entries.append(f"u{rid}")
+        bead_im = render_gaussian_spots(
+            shape, bead_truth["centers"] + drifts[r],
+            bead_truth["heights"], bead_truth["sigmas"], background=120.0)
+        stacks.append(bead_im)
+        row_entries.append("beads")
+        distort_and_write(folder, stacks, row_entries)
+
+    if calibration_rounds:
+        # one single-labeled round per corr channel (reference
+        # bleedthrough calibration experiments)
+        truth["bleed_folders"] = {}
+        for ci in corr_idx:
+            ch = channels[ci]
+            folder = os.path.join(root, f"Hbleed_{ch}")
+            _, t = random_spot_field(shape, max(n_spots, 12), rng,
+                                     min_separation=14.0,
+                                     height_range=(3000.0, 8000.0))
+            stacks = [np.full(shape, 120.0) for _ in channels]
+            stacks[ci] = render_gaussian_spots(
+                shape, displaced(t["centers"], ch), t["heights"],
+                t["sigmas"], background=120.0)
+            rows = ["null"] * len(channels)
+            rows[ci] = "bleedcal"
+            distort_and_write(folder, stacks, rows)
+            truth["bleed_folders"][ch] = folder
+        # one multi-color bead round (reference chromatic calibration):
+        # the same bead field in every corr channel, each displaced by
+        # that channel's chromatic field
+        folder = os.path.join(root, "Hchromcal")
+        _, t = random_spot_field(shape, max(n_spots, 12), rng,
+                                 min_separation=16.0,
+                                 height_range=(3000.0, 8000.0))
+        stacks = [np.full(shape, 120.0) for _ in channels]
+        for ci in corr_idx:
+            stacks[ci] = render_gaussian_spots(
+                shape, displaced(t["centers"], channels[ci]),
+                t["heights"], t["sigmas"], background=120.0)
+        distort_and_write(folder, stacks,
+                          ["chromcal" if i in corr_idx else "null"
+                           for i in range(len(channels))])
+        truth["chromatic_folder"] = folder
+        truth["chromatic_bead_centers"] = t["centers"]
+
+    with open(os.path.join(root, "Color_Usage.csv"), "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["Hyb"] + list(channels))
+        w.writerows(usage_rows)
+    return truth
+
+
+def make_synthetic_fov(shape=(16, 256, 256), n_rounds=3, n_channels=2,
+                       n_spots=20, seed=0, drift_scale=3.0,
+                       apply_illumination=True, apply_bleed=False,
+                       noise=True) -> SyntheticFov:
+    """Build a small multi-round FOV: same spot field per channel, shifted
+    per round by a random drift, with vignetting and optional noise."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(shape)
+    prof = np.stack([illumination_profile(shape[1:], rng=rng)
+                     for _ in range(n_channels)])
+    drifts = np.vstack([np.zeros(3),
+                        rng.uniform(-drift_scale, drift_scale,
+                                    size=(n_rounds - 1, 3))])
+    ims = np.zeros((n_rounds, n_channels) + shape, dtype=np.float32)
+    truth = []
+    base_fields = []
+    for c in range(n_channels):
+        _, t = random_spot_field(shape, n_spots, rng, min_separation=12.0)
+        base_fields.append(t)
+    for r in range(n_rounds):
+        for c in range(n_channels):
+            t = base_fields[c]
+            centers = t["centers"] + drifts[r]
+            im = render_gaussian_spots(shape, centers, t["heights"],
+                                       t["sigmas"], t["background"])
+            if apply_illumination:
+                im = im * prof[c][None]
+            if noise:
+                im = poisson_camera_noise(im, rng)
+            ims[r, c] = im.astype(np.float32)
+            truth.append({"round": r, "channel": c, "centers": centers,
+                          "heights": t["heights"], "sigmas": t["sigmas"]})
+    return SyntheticFov(ims=ims, truth=truth, drifts=drifts,
+                        illumination=prof, bleed=None)
 
 
 CALIBRATION_SHAPE = (60, 2048, 2048)
