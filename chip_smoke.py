@@ -79,7 +79,19 @@ Phases, each of which raises (exit code != 0) on a failed check:
    chromatic + drift image warp (<= 0.1 px), >= 90 % matched);
    ``FovPipeline.process_round_raw`` and ``process_rounds`` equal to
    ``process_round``; seed_classify, seed_pyramid, lm_fit and gather_cubes
-   must launch; reads, writes and every step timed.
+   must launch; reads, writes and every step timed;
+8. a written experiment through ``ExperimentDriver`` at bench.py's
+   geometry: 4 hyb rounds of 3-channel 60x2048x2048 .dax movies (~6.7 GB)
+   and a Color_Usage.csv, 8 unique regions of 1800 spots (750 and 647,
+   vignetted, 750 also under the order-2 chromatic shifts; 500 beads in
+   488), H1..H3 drifted by planted sub-pixel drifts, the profiles in a
+   correction folder: ``process_all`` into the per-FOV store (drifts
+   within 0.1 px, >= 90 % matched at a median <= 0.05 px per region;
+   seed_pyramid, lm_fit and gather_cubes in every round), the resume no-op
+   (store byte-identical) and a partial resume (rows equal), the
+   device-deinterleave mode (an equal store), sequential drift, the
+   chromosome image, candidates and their screening, and region crops
+   (H0's equal to the loader's window over the profile); every step timed.
 
 The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
@@ -92,7 +104,8 @@ nothing else (``--only level_stencil`` also runs from an older tree, which
 then reports no occupancy); ``--only gather_blocks`` times
 ``gaussian_fit.gather_blocks`` whole at every launch shape and checks
 nothing (so that it also times an older tree's); ``--only dax_path`` builds
-the four kernels of phase 7 and runs that phase alone.
+the four kernels of phase 7 and runs that phase alone; ``--only
+experiment`` builds the three kernels of phase 8 and runs that phase alone.
 """
 
 from __future__ import annotations
@@ -2156,6 +2169,445 @@ def _dax_phase(torch, smi: str) -> dict:
     return rec
 
 
+#: the experiment: 4 hyb rounds H0R0..H3R3 of the on-disk path's 3-channel
+#: layout; each data channel carries one unique region a round (u1..u8)
+EXP_ROUNDS = 4
+#: spot heights of the experiment's regions: write_synthetic_experiment's
+#: range, which the driver's per-channel seeding thresholds (the
+#: reference's CHANNEL_SEED_THRESHOLDS: 750 -> 400, 647 -> 600) are set for
+EXP_HEIGHTS = (1500.0, 5000.0)
+#: the box nuclei of the chromosome step split the FOV at this x
+EXP_SPLIT_X = SHAPE[1] // 2
+
+
+def _store_rows(store, ids):
+    """(ids, flags, drift flags, drifts, per-region (spots, drift, flag))
+    of the 'unique' data type, through the store's public reads."""
+    return {"ids": store.ids("unique"), "flags": store.flags("unique"),
+            "drift_flags": store.drift_flags("unique"),
+            "drifts": store.drifts("unique"),
+            "rows": {rid: store.load_spots("unique", rid) for rid in ids}}
+
+
+def _rows_equal(a, b) -> bool:
+    """Every field of two `_store_rows` equal, by np.array_equal."""
+    return all(np.array_equal(a[k], b[k])
+               for k in ("ids", "flags", "drift_flags", "drifts")) and all(
+        np.array_equal(x, y) for rid in a["rows"]
+        for x, y in zip(a["rows"][rid], b["rows"][rid]))
+
+
+def _tree_hashes(path) -> dict:
+    """sha256 of the store at `path`: its file, or every file under it."""
+    import hashlib
+    files = [path] if os.path.isfile(path) else [
+        os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs]
+    out = {}
+    for p in files:
+        with open(p, "rb") as fh:
+            out[os.path.relpath(p, path)] = hashlib.sha256(
+                fh.read()).hexdigest()
+    return out
+
+
+def _experiment_phase(torch, smi: str) -> dict:
+    """A written experiment through ``ExperimentDriver`` at bench.py's
+    geometry: EXP_ROUNDS hyb folders H0R0..H3R3 of 3-channel
+    60x2048x2048 uint16 .dax movies (interleaved after 10 buffer frames,
+    ~6.7 GB in all) and a Color_Usage.csv, in write_synthetic_experiment's
+    layout, under a directory of the checkout's build/ (8 GB free space
+    checked first, removed at the end).  750 and 647 carry one unique
+    region each a round (u1..u8), each with its own 1800 spots under a
+    vignette (falloff 0.35), 750 also under phase 7's order-2 chromatic
+    shifts; 488 carries the same 500 beads every round.  H0 is undrifted,
+    H1..H3 drifted by planted sub-pixel drifts of up to 2 px per axis.
+    Both profiles reach the driver through a correction folder
+    (``save_correction_profile``).  Gates, each a hard failure: (1)
+    ``process_all`` (default input mode, async writes, the store backend
+    the machine gives): every region flag 2, drift flag 0, drift within
+    0.1 px per axis of the planted one, >= 90 % of its planted spots
+    matched within 1 px at a median error in H0's frame <= 0.05 px;
+    seed_pyramid, lm_fit and gather_cubes launch in every round; (2) a
+    second ``process_all`` processes nothing and leaves every store file
+    byte-identical; H2's two regions set back to flag 0 are processed
+    again, alone, by one ``process_round``, into rows equal to the first
+    run's; (3) ``device_deinterleave=True`` gives an equal store; (4)
+    ``sequential_drift=True``: cumulative drifts within 0.1 px of the
+    planted ones and the spot gates of (1); (5) two box nuclei (the FOV's
+    halves) saved as the segmentation; ``generate_chromosome_image`` (the
+    drift-aligned sum of the 8 regions) reads above 1.5x its median at
+    every H0 planted spot (where its channel images it), and returns the
+    cached image on a second call; ``identify_chromosomes(4)`` gives at
+    most 4 per nucleus, each within 1.5 px of a planted spot and inside
+    its box; ``select_chromosomes_by_spots(0.2, 0.5)`` keeps them all;
+    (6) ``load_region_crops`` of a 20x256x256 window: H0's (drift 0) equal
+    the loader's window over the profile bit for bit, the others finite
+    and of the window's shape.  Every step is timed on the host clock
+    around ``torch.cuda.synchronize()``."""
+    import csv
+    import shutil
+    import tempfile
+
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.config import (CorrectionConfig,
+                                                 ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.io import (FovStore, interleave_channels,
+                                             load_dax_channels,
+                                             save_correction_profile,
+                                             write_dax)
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+    from imageanalysis3_tpu_torch.ops.warp import monomial_exponents
+    from imageanalysis3_tpu_torch.pipeline import ExperimentDriver
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    shape, chans, n_z = SHAPE, list(DAX_CHANNELS), SHAPE[0]
+    fov = "Conv_zscan_00.dax"
+    stack_bytes = int(np.prod(shape)) * 2
+    movie_bytes = (n_z * len(chans) + 2 * DAX_BUFFER) * stack_bytes // n_z
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < 8e9:
+        raise AssertionError(f"experiment: {free / 1e9:.2f} GB free under "
+                             f"{root}, need 8 GB for "
+                             f"{EXP_ROUNDS * movie_bytes / 1e9:.2f} GB of "
+                             f"movies")
+    rec = {"shape": shape, "rounds": EXP_ROUNDS, "movie_bytes": movie_bytes,
+           "seconds": {}, "launches": {}}
+    secs = rec["seconds"]
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # ---- the experiment ---------------------------------------------------
+    rng = np.random.default_rng(31)
+    regions = {}                       # rid -> (round, channel index, truth)
+    for r in range(EXP_ROUNDS):
+        for ci in range(2):
+            regions[2 * r + ci + 1] = (r, ci, syn.sample_spot_params(
+                shape, N_SPOTS, rng, min_separation=8.0,
+                height_range=EXP_HEIGHTS, sigma_jitter=0.0))
+    beads = syn.sample_spot_params(shape, 500, rng, min_separation=14.0,
+                                   height_range=(2000.0, 5000.0),
+                                   sigma_jitter=0.0, background=120.0)
+    drifts = np.vstack([np.zeros(3), rng.uniform(-2.0, 2.0,
+                                                 (EXP_ROUNDS - 1, 3))])
+    rec["planted_drifts"] = drifts.tolist()
+    vig = syn.illumination_profile(shape[1:], falloff=0.35)
+    vig_t = torch.as_tensor(vig.astype(np.float32), device=dev)
+    half = np.asarray(shape, np.float64) / 2.0
+    scale = np.array([1.0 / np.prod(half ** np.asarray(e))
+                      for e in monomial_exponents(3, 2)])
+    consts = (np.asarray(syn.PLANTED_SHIFTS[0]) * scale[None]
+              ).astype(np.float32)
+
+    def imaged(ci, centers):
+        """Where channel ci images the sample points `centers`."""
+        if ci == 0:
+            return centers + syn._poly_shift_np(centers, consts, half)
+        return centers
+
+    tmp = tempfile.mkdtemp(prefix="experiment_", dir=root)
+    try:
+        data = os.path.join(tmp, "data")
+        folders = []
+        secs["write"] = 0.0
+        for r in range(EXP_ROUNDS):
+            t0 = time.perf_counter()
+            chs = []
+            for ci in range(2):
+                t = regions[2 * r + ci + 1][2]
+                im = syn.render_spots(
+                    shape, imaged(ci, t["centers"] + drifts[r]),
+                    t["heights"], background=150.0, device=dev)
+                chs.append(syn.noisy_uint16(im, seed=100 + 10 * r + ci,
+                                            illumination=vig_t))
+                del im
+            im = syn.render_spots(shape, beads["centers"] + drifts[r],
+                                  beads["heights"], background=120.0,
+                                  device=dev)
+            chs.append(syn.noisy_uint16(im, seed=102 + 10 * r))
+            del im
+            movie = interleave_channels([c.cpu().numpy() for c in chs],
+                                        buffer_frames=DAX_BUFFER)
+            del chs
+            secs[f"render_H{r}"] = time.perf_counter() - t0
+            folder = os.path.join(data, f"H{r}R{r}")
+            os.makedirs(folder)
+            path = os.path.join(folder, fov)
+
+            def write():
+                write_dax(path, movie)
+                with open(path, "rb+") as fh:
+                    os.fsync(fh.fileno())
+            timed("write_one", write)
+            secs["write"] += secs.pop("write_one")
+            folders.append(folder)
+            del movie
+        with open(os.path.join(data, "Color_Usage.csv"), "w",
+                  newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["Hyb"] + chans)
+            for r in range(EXP_ROUNDS):
+                w.writerow([f"H{r}R{r}", f"u{2 * r + 1}", f"u{2 * r + 2}",
+                            "beads"])
+        corr_folder = os.path.join(tmp, "Corrections")
+        save_correction_profile("illumination", {"750": vig, "647": vig},
+                                corr_folder, ("750", "647"), im_size=shape)
+        save_correction_profile("chromatic_constants",
+                                {"750": consts, "647": None}, corr_folder,
+                                ("750", "647"), im_size=shape)
+        rec["write_GBps"] = EXP_ROUNDS * movie_bytes / secs["write"] / 1e9
+        print(f"experiment: {EXP_ROUNDS} movies of {movie_bytes / 1e9:.3f} "
+              f"GB written in {secs['write']:.3f} s "
+              f"({rec['write_GBps']:.2f} GB/s); planted drifts "
+              f"{drifts.round(4).tolist()}  [{smi}]")
+
+        cfg = ExperimentConfig(
+            image_size=shape, corr_channels=("750", "647"),
+            correction=CorrectionConfig(),
+            seed=SeedConfig(th_seed=TH_SEED, max_num_seeds=2048),
+            fit=FitConfig())
+
+        def driver(save, **kw):
+            return ExperimentDriver(data, os.path.join(tmp, save), cfg=cfg,
+                                    correction_folder=corr_folder,
+                                    device=dev, **kw)
+
+        def check_spots(label, store):
+            """Flags, drift flags, drifts and the spot gates of every
+            region; returns the per-region readings."""
+            out = {}
+            for rid, (r, ci, t) in regions.items():
+                spots, drift, flag = store.load_spots("unique", rid)
+                dflag = int(store.drift_flags("unique")[
+                    store.region_index("unique", rid)])
+                derr = np.abs(drift + drifts[r])
+                errs, n_m = _matched_errors(
+                    torch, torch.as_tensor(spots[:, 1:4], device=dev),
+                    t["centers"])
+                med = float(np.median(errs)) if len(errs) else float("nan")
+                out[rid] = {"round": r, "channel": chans[ci], "flag": flag,
+                            "drift_flag": dflag,
+                            "drift": drift.round(4).tolist(),
+                            "drift_err": derr.round(4).tolist(),
+                            "matched": n_m, "n_spots": len(spots),
+                            "median_err_px": med}
+                if (flag != 2 or dflag != 0 or derr.max() > 0.1
+                        or n_m < 0.9 * N_SPOTS or not med <= 0.05):
+                    raise AssertionError(f"experiment ({label}), region "
+                                         f"u{rid}: {out[rid]}")
+            print(f"experiment ({label}): per region "
+                  f"{ {f'u{k}': v for k, v in out.items()} }")
+            return out
+
+        # ---- 1. process_all, default input mode, async writes ----------------
+        drv = driver("save")
+        per_round = []
+
+        def counted(pipe, ims, ref_im):
+            before = kernel_launches()
+            res = ExperimentDriver._dispatch_round(pipe, ims, ref_im)
+            per_round.append({k: n - before[k]
+                              for k, n in kernel_launches().items()})
+            return res
+
+        drv._dispatch_round = counted
+        # a first pass over H0's movie takes the first-call costs (cuFFT
+        # plans, the allocator's growth, the loader's page cache) outside
+        # the timed run; it writes nothing
+        warm = driver("warm")
+        warm._reference_image(fov)
+        del warm
+        reset_kernel_launches()
+        counts = timed("process_all", drv.process_all)
+        rec["launches"]["process_all"] = kernel_launches()
+        rec["launches"]["per_round"] = list(per_round)
+        if counts != {fov: {"unique": 2 * EXP_ROUNDS}}:
+            raise AssertionError(f"experiment: process_all processed "
+                                 f"{counts}")
+        if len(per_round) != EXP_ROUNDS or any(
+                c[name] < 1 for c in per_round for name in PYRAMID_PATH):
+            raise AssertionError(f"experiment: a kernel of the path did not "
+                                 f"launch in every round: {per_round}")
+        path = drv.store_path(fov)
+        ids = list(regions)
+        with FovStore(path, "r") as store:
+            rec["store_backend"] = store.backend
+            rec["regions"] = check_spots("process_all", store)
+            first = _store_rows(store, ids)
+        rec["stage_seconds"] = drv.timings.summary()
+        rec["s_per_round"] = {"default": secs["process_all"] / EXP_ROUNDS}
+        print(f"experiment: store backend {rec['store_backend']} "
+              f"({path}); process_all {secs['process_all']:.3f} s, "
+              f"{rec['s_per_round']['default']:.4f} s/round; stages "
+              f"{ {k: round(v, 4) for k, v in rec['stage_seconds'].items()} }"
+              f" s; launches per round {per_round}  [{smi}]")
+
+        # ---- 2. resume -------------------------------------------------------
+        before = _tree_hashes(path)
+        again = timed("resume_noop", drv.process_all)
+        if again != {fov: {"unique": 0}} or _tree_hashes(path) != before:
+            raise AssertionError(f"experiment: the resume no-op processed "
+                                 f"{again} or changed the store")
+        cleared = [rid for rid, (r, _, _) in regions.items() if r == 2]
+        with FovStore(path) as store:
+            for rid in cleared:
+                store.set_flag("unique", rid, 0)
+        n_rec = len(drv.timings.records)
+        part = timed("partial_resume", lambda: drv.process_fov(fov))
+        rounds_run = [x["folder"] for x in drv.timings.records[n_rec:]
+                      if x["stage"] == "process_round"]
+        with FovStore(path, "r") as store:
+            redone = _store_rows(store, ids)
+        if (part != {"unique": len(cleared)} or rounds_run != ["H2R2"]
+                or not _rows_equal(redone, first)):
+            raise AssertionError(f"experiment: partial resume processed "
+                                 f"{part} in rounds {rounds_run}, rows "
+                                 f"equal {_rows_equal(redone, first)}")
+        print(f"experiment: resume no-op {secs['resume_noop']:.4f} s, "
+              f"{len(before)} store files byte-identical; u{cleared} set "
+              f"back to flag 0 -> {part} in rounds {rounds_run} "
+              f"({secs['partial_resume']:.3f} s), rows equal to the first "
+              f"run's  [{smi}]")
+
+        # ---- 3. device de-interleave -----------------------------------------
+        raw_drv = driver("save_raw", device_deinterleave=True)
+        reset_kernel_launches()
+        timed("process_all_raw", raw_drv.process_all)
+        rec["launches"]["process_all_raw"] = kernel_launches()
+        with FovStore(raw_drv.store_path(fov), "r") as store:
+            if not _rows_equal(_store_rows(store, ids), first):
+                raise AssertionError("experiment: device_deinterleave's "
+                                     "store differs from the default mode's")
+        rec["s_per_round"]["device_deinterleave"] = \
+            secs["process_all_raw"] / EXP_ROUNDS
+        rec["stage_seconds_raw"] = raw_drv.timings.summary()
+        print(f"experiment (device_deinterleave): "
+              f"{rec['s_per_round']['device_deinterleave']:.4f} s/round, "
+              f"store equal to the default mode's; stages "
+              f"{ {k: round(v, 4) for k, v in rec['stage_seconds_raw'].items()} }"
+              f" s  [{smi}]")
+        del raw_drv
+
+        # ---- 4. sequential drift ---------------------------------------------
+        seq = driver("save_seq", sequential_drift=True)
+        reset_kernel_launches()
+        timed("process_all_seq", seq.process_all)
+        rec["launches"]["process_all_seq"] = kernel_launches()
+        with FovStore(seq.store_path(fov), "r") as store:
+            rec["sequential"] = check_spots("sequential_drift", store)
+        rec["s_per_round"]["sequential"] = \
+            secs["process_all_seq"] / EXP_ROUNDS
+        rec["stage_seconds_seq"] = seq.timings.summary()
+        print(f"experiment (sequential_drift): "
+              f"{rec['s_per_round']['sequential']:.4f} s/round; stages "
+              f"{ {k: round(v, 4) for k, v in rec['stage_seconds_seq'].items()} }"
+              f" s; launches {rec['launches']['process_all_seq']}  [{smi}]")
+        del seq
+
+        # ---- 5. chromosomes --------------------------------------------------
+        labels = np.zeros(shape, np.int32)
+        labels[:, :EXP_SPLIT_X] = 1
+        labels[:, EXP_SPLIT_X:] = 2
+        with FovStore(path) as store:
+            timed("save_segmentation",
+                  lambda: store.save_segmentation(labels))
+        del labels
+        chrom = timed("generate_chromosome_image",
+                      lambda: drv.generate_chromosome_image(fov))
+        med = float(np.median(chrom))
+        shown = np.concatenate([imaged(ci, t["centers"])
+                                for r, ci, t in regions.values()])
+        h0 = np.concatenate([imaged(ci, t["centers"])
+                             for r, ci, t in regions.values() if r == 0])
+        zi, xi, yi = np.clip(np.round(h0).astype(np.int64), 0,
+                             np.asarray(shape) - 1).T
+        low = int((chrom[zi, xi, yi] <= 1.5 * med).sum())
+        cached = timed("chromosome_image_cached",
+                       lambda: drv.generate_chromosome_image(fov))
+        if low or not np.array_equal(cached, chrom):
+            raise AssertionError(f"experiment: {low} of {len(h0)} H0 spots "
+                                 f"read <= 1.5x the chromosome image's "
+                                 f"median {med}, or the cached image "
+                                 f"differs")
+        del cached
+        coords, labs, n_per = timed(
+            "identify_chromosomes",
+            lambda: drv.identify_chromosomes(fov, expected_per_nucleus=4))
+        dist = np.linalg.norm(shown[None] - coords[:, None].astype(
+            np.float64), axis=-1).min(axis=1)
+        in_box = np.where(labs == 1, coords[:, 1] < EXP_SPLIT_X,
+                          coords[:, 1] >= EXP_SPLIT_X)
+        rec["chromosomes"] = {"coords": coords.tolist(),
+                              "labels": labs.tolist(),
+                              "per_nucleus": n_per,
+                              "dist_px": dist.tolist(),
+                              "median": med}
+        if (not len(coords) or max(n_per.values()) > 4
+                or dist.max() >= 1.5 or not in_box.all()):
+            raise AssertionError(f"experiment: chromosome candidates "
+                                 f"{rec['chromosomes']}")
+        kept = timed("select_chromosomes_by_spots",
+                     lambda: drv.select_chromosomes_by_spots(
+                         fov, cand_spot_intensity_th=0.2,
+                         good_chr_loss_th=0.5))
+        if len(kept) != len(coords):
+            raise AssertionError(f"experiment: select_chromosomes_by_spots "
+                                 f"kept {len(kept)} of {len(coords)}")
+        print(f"experiment: chromosome image {secs['generate_chromosome_image']:.3f}"
+              f" s (cached {secs['chromosome_image_cached']:.3f} s; every H0 "
+              f"spot > 1.5x the median {med:.1f}); identify_chromosomes "
+              f"{secs['identify_chromosomes']:.3f} s: {len(coords)} "
+              f"candidates {coords.tolist()}, labels {labs.tolist()}, "
+              f"per nucleus {n_per}, max distance to a planted spot "
+              f"{dist.max():.3f} px; select_chromosomes_by_spots "
+              f"{secs['select_chromosomes_by_spots']:.3f} s kept "
+              f"{len(kept)}  [{smi}]")
+        del chrom
+
+        # ---- 6. region crops -------------------------------------------------
+        lims = np.array([[20, 40], [896, 1152], [896, 1152]])
+        crops = timed("load_region_crops", lambda: drv.load_region_crops(
+            fov, lims, "unique"))
+        block = load_dax_channels(os.path.join(folders[0], fov), chans,
+                                  chans, n_z=n_z, buffer_frames=DAX_BUFFER)
+        prof = vig.astype(np.float32)[896:1152, 896:1152]
+        want_shape = tuple(int(b - a) for a, b in lims)
+        for rid, (r, ci, _) in regions.items():
+            crop = crops[rid]
+            if crop.shape != want_shape or not np.isfinite(crop).all():
+                raise AssertionError(f"experiment: crop u{rid} "
+                                     f"{crop.shape}, finite "
+                                     f"{np.isfinite(crop).all()}")
+            if r == 0:
+                want = (block[ci, 20:40, 896:1152, 896:1152].astype(
+                    np.float32) / prof[None])
+                if not np.array_equal(crop, want):
+                    raise AssertionError(f"experiment: H0's crop u{rid} "
+                                         f"differs from the loader's "
+                                         f"window over the profile")
+        del block
+        print(f"experiment: load_region_crops of {want_shape} for "
+              f"{len(crops)} regions {secs['load_region_crops']:.3f} s; "
+              f"H0's equal to the loader's window over the profile  [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["total_launches"] = {k: rec["launches"]["process_all"][k]
+                             for k in PYRAMID_PATH}
+    print(f"experiment: steps "
+          f"{ {k: round(v, 4) for k, v in secs.items()} } s  [{smi}]")
+    return rec
+
+
 def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
     """One main-path round under torch.profiler: device time by kernel and
     the device's busy share of the round's wall time."""
@@ -2194,13 +2646,14 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["seed_classify", "seed_pyramid",
                                        "lm_fit", "dual_blur", "level_stencil",
                                        "gather_cubes", "gather_blocks",
-                                       "dax_path"],
+                                       "dax_path", "experiment"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
                          "gaussian_fit.gather_blocks whole and checks "
                          "nothing; dax_path builds the on-disk path's "
-                         "kernels and runs that phase alone")
+                         "kernels and runs that phase alone, experiment "
+                         "the experiment driver's")
     args = ap.parse_args(argv)
 
     import torch
@@ -2235,6 +2688,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"peaks used for bounds: {peaks[2]}")
     only = {"gather_blocks": ["gather_cubes"], "dax_path": list(DAX_PATH),
+            "experiment": list(PYRAMID_PATH),
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -2246,6 +2700,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.only == "dax_path":
         _dax_phase(torch, smi)
+        return 0
+    if args.only == "experiment":
+        _experiment_phase(torch, smi)
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -2450,6 +2907,11 @@ def main(argv=None) -> int:
     # ---- 7. the on-disk .dax path -------------------------------------------
     record["dax_path"] = dax = _dax_phase(torch, smi)
     dax_launches = dax["total_launches"]
+    torch.cuda.empty_cache()
+
+    # ---- 8. the experiment driver ---------------------------------------------
+    record["experiment"] = exp = _experiment_phase(torch, smi)
+    exp_launches = exp["total_launches"]
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -2458,7 +2920,8 @@ def main(argv=None) -> int:
          "launches": total["seed_pyramid"], "max_abs_err": pyr_err,
          "ms": pyr_ms, "plain_ms": pyr_plain_ms, "bound_ms": pyr_bound[0],
          "bound_by": pyr_bound[1], "library_ms": None,
-         "dax_path_launches": dax_launches["seed_pyramid"]},
+         "dax_path_launches": dax_launches["seed_pyramid"],
+         "experiment_launches": exp_launches["seed_pyramid"]},
         {"name": "lm_fit", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/lm_fit.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_lm.py:225",
@@ -2466,6 +2929,7 @@ def main(argv=None) -> int:
          "ms": lm_ms, "plain_ms": lm_plain_ms, "bound_ms": lm_bound[0],
          "bound_by": lm_bound[1], "library_ms": None,
          "dax_path_launches": dax_launches["lm_fit"],
+         "experiment_launches": exp_launches["lm_fit"],
          "shapes": {k: {f: v[f] for f in ("spots", "px", "iters", "ms",
                                           "plain_ms", "bound_ms",
                                           "max_abs_err")}
@@ -2505,6 +2969,7 @@ def main(argv=None) -> int:
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms")},
          "dax_path_launches": dax_launches["gather_cubes"],
+         "experiment_launches": exp_launches["gather_cubes"],
          "entries": {"ball": gather["ball"], "cubes": gather["cubes"],
                      "gather_blocks": gather["gather_blocks"]}},
     ]

@@ -1,8 +1,12 @@
-"""Pipeline orchestration: per-FOV round processing and the stepwise
-per-.dax facade."""
+"""Pipeline orchestration: per-FOV round processing, the stepwise per-.dax
+facade and the experiment driver (hyb folders -> per-FOV spot stores)."""
 
 from .dax_processer import DaxProcesser, batch_process_image_quick
+from .experiment import (DATA_TYPE_PREFIXES, ExperimentDriver, RawRound,
+                         RoundPlan, StageTimes, parse_region_entry)
 from .fov import FovPipeline, RoundResult
 
 __all__ = ["FovPipeline", "RoundResult", "DaxProcesser",
-           "batch_process_image_quick"]
+           "batch_process_image_quick", "ExperimentDriver", "RoundPlan",
+           "RawRound", "StageTimes", "parse_region_entry",
+           "DATA_TYPE_PREFIXES"]

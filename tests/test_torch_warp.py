@@ -48,6 +48,25 @@ def test_trilinear_map_coordinates_matches_jax():
            jw.trilinear_map_coordinates(im, coords))
 
 
+def test_trilinear_map_coordinates_near_2048_matches_jax():
+    """The gather at y = 2040..2099 (a full-width frame's last columns) on
+    values up to 6e4, sampled at the grid less the drift (0.6, -1.4, 2.3):
+    its f32 coordinates round by up to 1.2e-4 px there, in both packages
+    alike.  The two agree to 7.8e-3 (two f32 ulps at 6e4); held at atol
+    1e-2, rtol 0."""
+    im = np.random.default_rng(13).uniform(0, 6e4, (6, 40, 2100)).astype(
+        np.float32)
+    d = np.array([0.6, -1.4, 2.3], np.float32)
+    grid = np.stack(np.meshgrid(np.arange(6), np.arange(40),
+                                np.arange(2040, 2100), indexing="ij"))
+    coords = (grid - d[:, None, None, None]).astype(np.float32)
+    got = tw.trilinear_map_coordinates(torch.from_numpy(im),
+                                       torch.from_numpy(coords))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jw.trilinear_map_coordinates(im, coords)),
+        rtol=0, atol=1e-2)
+
+
 @pytest.mark.parametrize("drift", [(0.5, 1.25, -0.75), (-2.3, 7.6, 0.0),
                                    (12.0, -0.01, 3.99)])
 def test_warp_image_drift_matches_jax_and_the_gather(drift):
