@@ -91,7 +91,21 @@ Phases, each of which raises (exit code != 0) on a failed check:
    (store byte-identical) and a partial resume (rows equal), the
    device-deinterleave mode (an equal store), sequential drift, the
    chromosome image, candidates and their screening, and region crops
-   (H0's equal to the loader's window over the profile); every step timed.
+   (H0's equal to the loader's window over the profile); then
+   ``FieldOfView`` over the same store (a resume no-op; EM picks on the 8
+   x ~1800 candidate table without a centre and at each chromosome
+   centre, equal to the CPU's up to f32 ties; the naive pick; the
+   distance map within 1e-3 relative of a float64 pdist); every step
+   timed;
+9. picking at a lab's width, no kernel: ``em_pick_spots_exclusive`` on 8
+   planted cells of two homologs (300 regions x 16 candidates each),
+   shared-spot EM, ``check_picked_spots``, ``merge_spot_lists`` on two
+   passes' lists, ``em_pick_spots_in_population`` on 2048 chromosomes x
+   300 regions x up to 8 candidates, the median and contact maps of its
+   picks, and ``tuple_self_scores`` against ``collect_invalid_pairs`` on
+   phase 5's decoded groups; planted recovery >= 0.9, exclusivity, picks
+   equal to the CPU's up to f32 ties, the median map within 1e-3 of
+   NumPy's float64 ``nanmedian``.
 
 The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
@@ -105,7 +119,9 @@ then reports no occupancy); ``--only gather_blocks`` times
 ``gaussian_fit.gather_blocks`` whole at every launch shape and checks
 nothing (so that it also times an older tree's); ``--only dax_path`` builds
 the four kernels of phase 7 and runs that phase alone; ``--only
-experiment`` builds the three kernels of phase 8 and runs that phase alone.
+experiment`` builds the three kernels of phase 8 and runs that phase alone;
+``--only picking`` runs phase 9 alone (no kernel; its self-scores then run
+on planted groups).
 """
 
 from __future__ import annotations
@@ -995,6 +1011,14 @@ def _e2e_phase(torch, smi: str) -> dict:
     t_decode = time.perf_counter() - t0
     if out is None:
         raise AssertionError("e2e: the keep-ratio gate refused the cell")
+    # the decoded groups, for phase 9's self-scores: the spot table padded
+    # as the decoder padded it, positions in nm
+    n_pad = len(dec.spot_groups.spot_usage)
+    spots_t = torch.zeros((n_pad, 11), device="cuda")
+    spots_t[:len(spots)] = torch.as_tensor(spots, device="cuda")
+    valid_t = torch.arange(n_pad, device="cuda") < len(spots)
+    decoded = (dec.spot_groups, spots_t, spots_t[:, 1:4] * torch.as_tensor(
+        dec.pixel_sizes, device="cuda"), valid_t)
 
     px = np.asarray(syn.E2E_PIXEL_SIZE_NM)
     n_chr = len(set(scene.codebook["chr"]))
@@ -1055,7 +1079,8 @@ def _e2e_phase(torch, smi: str) -> dict:
             "median_drift_err_px": med_drift, "drift_errs_px": drift_errs,
             "launches_per_round": launches,
             "seed_classify_launches": sum(c["seed_classify"]
-                                          for c in launches)}
+                                          for c in launches),
+            "decoded": decoded}
 
 
 #: the gather's launch shapes on the paths: (seed capacity, fit radius) of
@@ -2210,6 +2235,93 @@ def _tree_hashes(path) -> dict:
     return out
 
 
+def _picks_agree(label, card, cpu, card_scores, cpu_scores) -> int:
+    """How many picks differ between the card's run and the CPU's on one
+    input; raises unless each differing pick's scores agree to 1e-5
+    relative (an f32 tie the two devices broke apart)."""
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    diff = card != cpu
+    a = np.asarray(card_scores, np.float64)[diff]
+    b = np.asarray(cpu_scores, np.float64)[diff]
+    if not np.all(np.abs(a - b) <= 1e-5 * np.maximum(np.abs(a), np.abs(b))):
+        raise AssertionError(
+            f"{label}: {int(diff.sum())} picks differ between the card and "
+            f"the CPU beyond an f32 tie: card {card[diff][:8]} scores "
+            f"{a[:8]}, CPU {cpu[diff][:8]} scores {b[:8]}")
+    return int(diff.sum())
+
+
+def _field_of_view_step(torch, smi: str, timed, secs, data, save, cfg,
+                        corr_folder, fov, centers) -> dict:
+    """Phase 8, step 7: ``FieldOfView`` over the experiment's store.
+    ``process_image_to_spots`` is a resume no-op (store byte-identical);
+    the candidate table holds the 8 regions' ~1800 fitted spots each, so
+    each DP step is an ~1800 x 1800 block; ``pick_spots("EM")`` without a
+    centre and once per chromosome centre of step 5, ``pick_spots("naive")``
+    and ``distance_map`` of the EM trace run on the card.  Gates: every EM
+    pick equal to the port's CPU run on the same table, up to f32 ties
+    (``_picks_agree``); the naive trace equal to the CPU's; the distance
+    map within 1e-3 relative of a float64 NumPy pdist of the trace.  Every
+    step is timed."""
+    from imageanalysis3_tpu_torch.config import DEFAULT_PIXEL_SIZE_NM
+    from imageanalysis3_tpu_torch.pipeline import FieldOfView
+
+    dev = torch.device("cuda")
+    view = FieldOfView(data, save, fov, cfg=cfg,
+                       correction_folder=corr_folder, device=dev)
+    before = _tree_hashes(view.store_path)
+    counts = timed("fov_process_image_to_spots", view.process_image_to_spots)
+    if counts != {"unique": 0} or _tree_hashes(view.store_path) != before:
+        raise AssertionError(f"field of view: process_image_to_spots "
+                             f"processed {counts} or changed the store")
+    cand, valid, ids = timed("fov_candidate_table", view.candidate_table)
+    out = {"table": list(cand.shape), "candidates": int(valid.sum()),
+           "picks": {}}
+    runs = [("em", None)] + [(f"em_centre{k}", c)
+                             for k, c in enumerate(centers)]
+    em = None
+    for name, ctr in runs:
+        res = timed(f"fov_pick_{name}", lambda: view.pick_spots(
+            method="EM", chrom_center=ctr, device=dev))
+        ref = timed(f"fov_pick_{name}_cpu", lambda: view.pick_spots(
+            method="EM", chrom_center=ctr, device="cpu"))
+        n_diff = _picks_agree(f"field of view {name}", res.sel_idx.cpu(),
+                              ref.sel_idx, res.scores.cpu(), ref.scores)
+        out["picks"][name] = {"n_iters": int(res.n_iters),
+                              "picked": int(res.sel_valid.sum()),
+                              "differ_from_cpu_at_ties": n_diff}
+        if em is None:
+            em = res
+    naive = timed("fov_pick_naive", lambda: view.pick_spots(
+        method="naive", device=dev))
+    naive_cpu = view.pick_spots(method="naive", device="cpu")
+    if not (torch.equal(naive.sel_idx.cpu(), naive_cpu.sel_idx)
+            and torch.equal(naive.trace.cpu().nan_to_num(-1.0),
+                            naive_cpu.trace.nan_to_num(-1.0))):
+        raise AssertionError("field of view: the naive picks differ between "
+                             "the card and the CPU")
+    dm = timed("fov_distance_map", lambda: view.distance_map(em.trace,
+                                                             device=dev))
+    zxy = em.trace.cpu().numpy()[:, 1:4].astype(np.float64) * np.asarray(
+        DEFAULT_PIXEL_SIZE_NM, np.float64)
+    want = np.sqrt(((zxy[:, None] - zxy[None]) ** 2).sum(-1))
+    if (dm.shape != want.shape or not np.array_equal(np.isnan(dm),
+                                                     np.isnan(want))
+            or not np.allclose(dm, want, rtol=1e-3, atol=0.0,
+                               equal_nan=True)):
+        raise AssertionError(f"field of view: distance map off a float64 "
+                             f"pdist by {np.nanmax(np.abs(dm - want))} nm")
+    out["distance_map_max_rel_err"] = float(np.nanmax(
+        np.abs(dm - want) / np.maximum(want, 1e-30)))
+    print(f"field of view: resume no-op, table {out['table']} "
+          f"({out['candidates']} candidates), picks {out['picks']}, naive "
+          f"equal to the CPU's, distance map max relative error "
+          f"{out['distance_map_max_rel_err']:.2e}; seconds "
+          f"{ {k: round(v, 4) for k, v in secs.items() if k.startswith('fov_')} }"
+          f"  [{smi}]")
+    return out
+
+
 def _experiment_phase(torch, smi: str) -> dict:
     """A written experiment through ``ExperimentDriver`` at bench.py's
     geometry: EXP_ROUNDS hyb folders H0R0..H3R3 of 3-channel
@@ -2599,12 +2711,303 @@ def _experiment_phase(torch, smi: str) -> dict:
         print(f"experiment: load_region_crops of {want_shape} for "
               f"{len(crops)} regions {secs['load_region_crops']:.3f} s; "
               f"H0's equal to the loader's window over the profile  [{smi}]")
+
+        # ---- 7. FieldOfView ----------------------------------------------------
+        rec["field_of_view"] = _field_of_view_step(
+            torch, smi, timed, secs, data, os.path.join(tmp, "save"), cfg,
+            corr_folder, fov, coords)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec["total_launches"] = {k: rec["launches"]["process_all"][k]
                              for k in PYRAMID_PATH}
     print(f"experiment: steps "
           f"{ {k: round(v, 4) for k, v in secs.items()} } s  [{smi}]")
+    return rec
+
+
+#: phase 9's scale: a lab's cells at the e2e scene's width (300 regions);
+#: 1 true candidate and 7 decoys a region and homolog
+PICK_REGIONS = 300
+PICK_DECOYS = 7
+PICK_CELLS = 8
+PICK_POPULATION = 2048
+PICK_CPU_POPULATION = 256
+PICK_PX = np.asarray([200.0, 108.0, 108.0])
+
+
+def _planted_candidates(rng, zxys):
+    """(R, 1 + PICK_DECOYS, 4) hzxy rows (nm) around one polymer trace and
+    its true slot per region: the trace's point at 30 nm jitter, heights
+    800-1500, among decoys spread 4000 nm around the trace's centre,
+    heights 800-2500 (so they may be brighter), as tests/test_picking.py
+    and tests/test_population_picking.py plant them."""
+    r, m = len(zxys), 1 + PICK_DECOYS
+    slot = rng.integers(0, m, r)
+    pos = zxys.mean(0) + rng.normal(0, 4000.0, (r, m, 3))
+    h = rng.uniform(800, 2500, (r, m))
+    ar = np.arange(r)
+    pos[ar, slot] = zxys + rng.normal(0, 30.0, (r, 3))
+    h[ar, slot] = rng.uniform(800, 1500, r)
+    return np.concatenate([h[..., None], pos], -1).astype(np.float32), slot
+
+
+def _polymer_traces(rng, n, starts):
+    """(len(starts), n, 3) random walks in nm, 300 nm steps."""
+    steps = rng.normal(0, 300.0 / np.sqrt(3), (len(starts), n, 3))
+    return np.asarray(starts, np.float64)[:, None] + np.cumsum(steps, 1)
+
+
+def _planted_population(rng, n):
+    """(hzxy (n, R, 8, 4) nm, valid, true slot (n, R), -1 where a region
+    is empty), as tests/test_population_picking.py plants them: 10 % of
+    regions empty, 1-8 candidates in the others, the trace's point at 30
+    nm jitter (heights 800-1500) among decoys spread 3500 nm around the
+    trace's centre (heights 800-2500)."""
+    r, m = PICK_REGIONS, 1 + PICK_DECOYS
+    traces = _polymer_traces(rng, r, rng.uniform(3000, 9000, (n, 3)))
+    n_c = rng.integers(1, m + 1, (n, r))
+    slot = rng.integers(0, n_c)
+    keep = rng.uniform(size=(n, r)) >= 0.1
+    pos = traces.mean(1)[:, None, None] + rng.normal(0, 3500.0,
+                                                     (n, r, m, 3))
+    h = rng.uniform(800, 2500, (n, r, m))
+    i, j = np.indices((n, r))
+    pos[i, j, slot] = traces + rng.normal(0, 30.0, (n, r, 3))
+    h[i, j, slot] = rng.uniform(800, 1500, (n, r))
+    valid = (np.arange(m) < n_c[..., None]) & keep[..., None]
+    hzxy = np.where(valid[..., None],
+                    np.concatenate([h[..., None], pos], -1), np.nan)
+    return hzxy.astype(np.float32), valid, np.where(keep, slot, -1)
+
+
+def _planted_cell(rng):
+    """One cell of two homologs 10 um apart: (cand (R, 16, 11) px rows,
+    valid, region ids, centres (2, 3) px, true slot (2, R))."""
+    zxys = _polymer_traces(rng, PICK_REGIONS, [(3000.0, 5000.0, 5000.0),
+                                               (3000.0, 12000.0, 12000.0)])
+    m = 1 + PICK_DECOYS
+    cand = np.zeros((PICK_REGIONS, 2 * m, 11), np.float32)
+    truth = np.zeros((2, PICK_REGIONS), np.int64)
+    for h in range(2):
+        hzxy, slot = _planted_candidates(rng, zxys[h])
+        cand[:, h * m:(h + 1) * m, 0] = hzxy[..., 0]
+        cand[:, h * m:(h + 1) * m, 1:4] = hzxy[..., 1:4] / PICK_PX
+        truth[h] = h * m + slot
+    centers = (zxys.mean(1) / PICK_PX).astype(np.float32)
+    return (cand, np.ones(cand.shape[:2], bool),
+            np.arange(PICK_REGIONS, dtype=np.int32), centers, truth)
+
+
+def _planted_groups(rng, n_groups=2000, n_free=2000):
+    """A decoded cell's stand-in: tight bright pairs and triples (80 nm
+    jitter) and free dim spots -> (SpotGroups, spots (N, 11), positions
+    (N, 3) nm, valid), on the card."""
+    import torch
+    from imageanalysis3_tpu_torch.decode import SpotGroups
+
+    size = 2 + np.arange(n_groups) % 2
+    first = np.concatenate([[0], np.cumsum(size)[:-1]])
+    n = int(size.sum()) + n_free
+    pos = rng.uniform(0, 20000, (n, 3))
+    owner = np.repeat(np.arange(n_groups), size)
+    pos[:len(owner)] = (pos[first][owner]
+                        + rng.normal(0, 80.0, (len(owner), 3)))
+    spots = np.zeros((n, 11), np.float32)
+    spots[:, 0] = np.concatenate([rng.uniform(800, 1500, len(owner)),
+                                  rng.uniform(200, 900, n_free)])
+    spots[:, 1:4] = pos / PICK_PX
+    idx = np.full((n_groups, 3), -1, np.int64)
+    for k in range(3):
+        idx[:, k] = np.where(k < size, first + k, -1)
+    usage = np.zeros(n, np.int32)
+    usage[:len(owner)] = 1
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, device=dev)
+    groups = SpotGroups(spot_idx=t(idx), region=t(np.arange(
+        n_groups, dtype=np.int32)), n_spots=t(size.astype(np.int32)),
+        ok=t(np.ones(n_groups, bool)), spot_usage=t(usage))
+    return groups, t(spots), t(pos.astype(np.float32)), t(np.ones(n, bool))
+
+
+def _picking_phase(torch, smi: str, decoded=None) -> dict:
+    """Phase 9: picking at a lab's width on the card, from planted inputs
+    made with NumPy from seed 41: (a) ``em_pick_spots_exclusive`` on
+    PICK_CELLS cells of two homologs, each one shared (300, 16) table, and
+    ``check_picked_spots`` on each pick; (b)
+    ``em_pick_spots_for_chromosomes(share_spots=True)`` on cell 0; (c)
+    ``merge_spot_lists`` on cell 0's candidates concatenated with a copy
+    moved 0.03 px (every copy merges into its original); (d)
+    ``em_pick_spots_in_population`` on 2048 chromosomes x 300 regions x up
+    to 8 candidates (``_planted_population``); (e) ``median_distance_map`` and ``contact_map`` over its
+    2048 picked traces; (f) ``tuple_self_scores`` against
+    ``collect_invalid_pairs``' nearest unused spots, on the e2e phase's
+    decoded groups when given (`decoded`), else on planted groups.
+    Gates, each a hard failure: planted recovery >= 0.9 of regions for
+    every homolog and chromosome; no candidate picked by both homologs of
+    a cell; cells 0 and 1, the merge and a 256-chromosome population equal
+    to the port's CPU runs, up to f32 ties (``_picks_agree``); the median
+    map of a 256-trace subset within 1e-3 relative of NumPy's float64
+    ``nanmedian``; finite self-scores on every scored group.  Timed on the
+    host clock around ``torch.cuda.synchronize()``; peak device memory."""
+    from imageanalysis3_tpu_torch.analysis import (contact_map,
+                                                   median_distance_map)
+    from imageanalysis3_tpu_torch.decode import (
+        check_picked_spots, collect_invalid_pairs,
+        em_pick_spots_exclusive, em_pick_spots_for_chromosomes,
+        em_pick_spots_in_population, find_unused_spots, merge_spot_lists,
+        tuple_self_scores)
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    secs = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def recovered(sel, ok, truth):
+        return float(((np.asarray(sel) == truth) & np.asarray(ok)).mean())
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    rng = np.random.default_rng(41)
+    rec = {"cells": [], "seconds": secs}
+    cells = [_planted_cell(rng) for _ in range(PICK_CELLS)]
+
+    # (a) exclusive EM, cell by cell, and the stringency screen
+    for k, (cand, valid, ids, centers, truth) in enumerate(cells):
+        args = [torch.as_tensor(a, device=dev)
+                for a in (cand, valid, ids, centers)]
+        res = timed("exclusive", lambda: em_pick_spots_exclusive(
+            *args, device=dev))
+        sel, ok = res.sel_idx.cpu().numpy(), res.sel_valid.cpu().numpy()
+        kept = [timed("check", lambda: check_picked_spots(
+            res.trace[h], res.sel_valid[h], args[3][h], device=dev))[0]
+            for h in range(2)]
+        cell = {"n_iters": int(res.n_iters[0]),
+                "n_unresolved": res.n_unresolved.tolist(),
+                "recovery": [recovered(sel[h], ok[h], truth[h])
+                             for h in range(2)],
+                "checked_kept": [int(c.sum()) for c in kept]}
+        if k < 2:
+            ref = em_pick_spots_exclusive(cand, valid, ids, centers,
+                                          device="cpu")
+            cell["differ_from_cpu_at_ties"] = _picks_agree(
+                f"picking cell {k}", sel, ref.sel_idx, res.scores.cpu(),
+                ref.scores)
+        rec["cells"].append(cell)
+        if min(cell["recovery"]) < 0.9:
+            raise AssertionError(f"picking cell {k}: recovery {cell}")
+        if (ok[0] & ok[1] & (sel[0] == sel[1])).any():
+            raise AssertionError(f"picking cell {k}: a candidate picked by "
+                                 f"both homologs")
+    rec["s_per_cell"] = secs["exclusive"] / PICK_CELLS
+
+    # (b) shared spots on cell 0
+    cand, valid, ids, centers, truth = cells[0]
+    res = timed("shared", lambda: em_pick_spots_for_chromosomes(
+        cand, valid, ids, centers, share_spots=True, device=dev))
+    rec["shared"] = {"n_iters": res.n_iters.tolist(), "recovery": [
+        recovered(res.sel_idx[h].cpu(), res.sel_valid[h].cpu(), truth[h])
+        for h in range(2)]}
+    if min(rec["shared"]["recovery"]) < 0.9:
+        raise AssertionError(f"picking, shared spots: {rec['shared']}")
+
+    # (c) merging two passes' lists of cell 0
+    flat = cand.reshape(-1, 11)
+    moved = flat.copy()
+    moved[:, 1:4] += 0.03
+    both = np.concatenate([flat, moved])
+    kept = timed("merge", lambda: merge_spot_lists(
+        both, np.ones(len(both), bool), device=dev)).cpu()
+    kept_cpu = merge_spot_lists(both, np.ones(len(both), bool), device="cpu")
+    rec["merge"] = {"spots": len(both), "kept": int(kept.sum())}
+    if not torch.equal(kept, kept_cpu) or int(kept[:len(flat)].sum()) \
+            != len(flat) or kept[len(flat):].any():
+        raise AssertionError(f"picking, merge: {rec['merge']}, equal to the "
+                             f"CPU's {torch.equal(kept, kept_cpu)}")
+
+    # (d) the population EM
+    hzxy, pvalid, slots = _planted_population(rng, PICK_POPULATION)
+    pids = np.arange(PICK_REGIONS)
+    pop = timed("population", lambda: em_pick_spots_in_population(
+        hzxy, pvalid, pids, device=dev))
+    has = slots >= 0
+    rec["population"] = {
+        "shape": list(hzxy.shape), "candidates": int(pvalid.sum()),
+        "n_iters": int(pop.n_iters), "change_ratio": float(pop.change_ratio),
+        "recovery": float((pop.sel_idx.cpu().numpy()[has]
+                           == slots[has]).mean())}
+    if rec["population"]["recovery"] < 0.9:
+        raise AssertionError(f"picking, population: {rec['population']}")
+    sub = slice(0, PICK_CPU_POPULATION)
+    pop_sub = em_pick_spots_in_population(hzxy[sub], pvalid[sub], pids,
+                                          device=dev)
+    pop_cpu = em_pick_spots_in_population(hzxy[sub], pvalid[sub], pids,
+                                          device="cpu")
+    rec["population"]["differ_from_cpu_at_ties"] = _picks_agree(
+        "picking, population", pop_sub.sel_idx.cpu(), pop_cpu.sel_idx,
+        pop_sub.sel_scores.cpu(), pop_cpu.sel_scores)
+
+    # (e) distance maps of the picked traces
+    zxys = pop.sel_hzxys[..., 1:4]                 # NaN where a region is empty
+    med = timed("median_distance_map", lambda: median_distance_map(zxys))
+    cont = timed("contact_map", lambda: contact_map(zxys))
+    sub_med = median_distance_map(zxys[sub]).cpu().numpy()
+    z64 = zxys[sub].cpu().numpy().astype(np.float64)
+    want = np.nanmedian(np.sqrt(((z64[:, :, None] - z64[:, None]) ** 2
+                                 ).sum(-1)), axis=0)
+    err = np.abs(sub_med - want) / np.maximum(np.abs(want), 1e-30)
+    rec["maps"] = {"shape": list(med.shape), "subset_max_rel_err":
+                   float(np.nanmax(err)),
+                   "mean_contact": float(cont.mean())}
+    if (not np.array_equal(np.isnan(sub_med), np.isnan(want))
+            or not np.nanmax(err) <= 1e-3
+            or not bool(torch.isfinite(med).all())
+            or not bool(torch.isfinite(cont).all())):
+        raise AssertionError(f"picking, median distance map: {rec['maps']}")
+    del med, cont, zxys
+
+    # (f) tuple self-scores against nearest-unused invalid pairs
+    if decoded is None:
+        groups, spots, pos, svalid = _planted_groups(rng)
+        rec["groups_from"] = "planted"
+    else:
+        groups, spots, pos, svalid = decoded
+        rec["groups_from"] = "e2e decode"
+    unused = find_unused_spots(groups, svalid)
+    pairs = timed("collect_invalid_pairs",
+                  lambda: collect_invalid_pairs(pos, unused))
+    scores = timed("tuple_self_scores", lambda: tuple_self_scores(
+        groups, spots, pos, *pairs)).cpu().numpy()
+    scored = np.isfinite(scores)
+    rec["self_scores"] = {"groups": int(groups.ok.sum()),
+                          "scored": int(scored.sum()),
+                          "invalid_pairs": int(pairs[2].sum()),
+                          "mean": float(scores[scored].mean())}
+    if (not scored.any() or not np.isneginf(scores[~scored]).all()
+            or not int(pairs[2].sum())):
+        raise AssertionError(f"picking, self-scores: {rec['self_scores']}")
+
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["launches"] = kernel_launches()
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"picking: phase {rec['phase_seconds']:.1f} s with its CPU "
+          f"references; {PICK_CELLS} exclusive cells {rec['s_per_cell']:.4f} "
+          f"s/cell, {rec['cells']}; shared {rec['shared']}; merge "
+          f"{rec['merge']}; population {rec['population']}; maps "
+          f"{rec['maps']}; self-scores ({rec['groups_from']}) "
+          f"{rec['self_scores']}; seconds "
+          f"{ {k: round(v, 4) for k, v in secs.items()} }; peak memory "
+          f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB; kernel launches "
+          f"{rec['launches']}  [{smi}]")
     return rec
 
 
@@ -2646,14 +3049,15 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["seed_classify", "seed_pyramid",
                                        "lm_fit", "dual_blur", "level_stencil",
                                        "gather_cubes", "gather_blocks",
-                                       "dax_path", "experiment"],
+                                       "dax_path", "experiment", "picking"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
                          "gaussian_fit.gather_blocks whole and checks "
                          "nothing; dax_path builds the on-disk path's "
                          "kernels and runs that phase alone, experiment "
-                         "the experiment driver's")
+                         "the experiment driver's, picking phase 9 (no "
+                         "kernel)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2688,7 +3092,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"peaks used for bounds: {peaks[2]}")
     only = {"gather_blocks": ["gather_cubes"], "dax_path": list(DAX_PATH),
-            "experiment": list(PYRAMID_PATH),
+            "experiment": list(PYRAMID_PATH), "picking": [],
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -2703,6 +3107,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "experiment":
         _experiment_phase(torch, smi)
+        return 0
+    if args.only == "picking":
+        _picking_phase(torch, smi)
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -2898,6 +3305,7 @@ def main(argv=None) -> int:
 
     # ---- 5. the end-to-end path (exact classifier) ------------------------
     record["e2e"] = e2e = _e2e_phase(torch, smi)
+    decoded = e2e.pop("decoded")
     torch.cuda.empty_cache()
 
     # ---- 6. the bead-calibration path ---------------------------------------
@@ -2912,6 +3320,11 @@ def main(argv=None) -> int:
     # ---- 8. the experiment driver ---------------------------------------------
     record["experiment"] = exp = _experiment_phase(torch, smi)
     exp_launches = exp["total_launches"]
+    torch.cuda.empty_cache()
+
+    # ---- 9. picking at a lab's width ------------------------------------------
+    record["picking"] = _picking_phase(torch, smi, decoded)
+    del decoded
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",

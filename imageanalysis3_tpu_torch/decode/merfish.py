@@ -11,8 +11,12 @@ distance table with the k nearest per row (f32 products written out, so no
 TF32 matmul can touch them), pair scores are empirical CDFs by sort +
 searchsorted, and the greedy selection's ``lax.while_loop`` is a host loop
 over ``active.any()`` (O(log) rounds, one synchronisation each).  The group
-QC functions (``find_seeding_groups`` and the rest, merfish.py:478-663)
-are not ported yet.
+QC functions (merfish.py:478-663) follow: seeding groups, unused spots,
+nearest-unused invalid pairs (one full-f32 |a|^2 + |b|^2 - 2ab product per
+row block), the random invalid pairs (host NumPy, the same generator calls
+in the same order), self-scores against both populations, and the
+per-channel normalization and chromatic recentering (``index_add_`` where
+the JAX package scatters with ``.at[].add``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.filters import full_f32_matmul
+from .scoring import generate_cdf_scores, sort_ref_values
 
 DEFAULT_SEARCH_TH_NM = 250.0   # reference default_search_th (decode.py:20)
 
@@ -412,3 +418,211 @@ class MerfishDecoder:
             groups, nb_idx, nb_ok, bit_index,
             torch.as_tensor(self._region_bits, device=dev), positions,
             max_tuple_size=self.codebook.n_on_bits, max_usage=max_usage)
+
+
+# ---------------------------------------------------------------------------
+# Group QC: seeding groups, unused spots, invalid-pair negative controls
+# (reference Merfish_Decoder.find_seeding_groups/find_unused_spots/
+# collect_invalid_pairs/generate_reference, decode.py:641-691;
+# DNA_Merfish_Decoder.generate_random_invalid_pairs :1314-1342;
+# calculate_self_scores :1087-1117)
+# ---------------------------------------------------------------------------
+
+
+def find_seeding_groups(groups: SpotGroups,
+                        num_cand_per_region: int = 2) -> torch.Tensor:
+    """(P,) mask of groups whose every member spot is claimed by at most
+    `num_cand_per_region` groups -- the unambiguous "seeding" groups the
+    homolog initialization trusts (reference find_seeding_groups,
+    decode.py:641-653)."""
+    usage = groups.spot_usage[groups.spot_idx.clamp_min(0)]      # (P, T)
+    member = groups.spot_idx >= 0
+    ok_members = torch.where(member, usage <= num_cand_per_region,
+                             True).all(dim=1)
+    return groups.ok & ok_members
+
+
+def find_unused_spots(groups: SpotGroups,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """(N,) mask of candidate spots no selected group claimed (reference
+    find_unused_spots, decode.py:656-664)."""
+    return valid & (groups.spot_usage == 0)
+
+
+def collect_invalid_pairs(positions: torch.Tensor, unused: torch.Tensor):
+    """Nearest-neighbor pairs among unused spots -> (i, j, ok), int32 /
+    int32 / bool.
+
+    The negative-control population for tuple self-scoring (reference
+    collect_invalid_pairs, decode.py:667-672: each unused spot pairs with
+    its nearest unused neighbor).  d^2 = |a|^2 + |b|^2 - 2ab as the JAX
+    package computes it, the product in full float32, 4096 rows at a time
+    so the (N, N) table is never held whole."""
+    n, block = positions.shape[0], 4096
+    sq = (positions * positions).sum(dim=1)
+    cols = torch.arange(n, device=positions.device)
+    j_out, min_out = [], []
+    for start in range(0, n, block):
+        a = positions[start:start + block]
+        with full_f32_matmul():
+            dot = a @ positions.T
+        d2 = sq[start:start + block, None] + sq[None, :] - 2.0 * dot
+        rows = cols[start:start + block]
+        both = unused[start:start + block, None] & unused[None, :]
+        d2 = torch.where(both & (rows[:, None] != cols[None, :]), d2,
+                         float("inf"))
+        j_out.append(d2.argmin(dim=1))
+        min_out.append(d2.amin(dim=1))
+    j = torch.cat(j_out).to(torch.int32)
+    ok = unused & torch.isfinite(torch.cat(min_out))
+    return cols.to(torch.int32), j, ok
+
+
+def generate_random_invalid_pairs(bit_index: np.ndarray,
+                                  valid: np.ndarray,
+                                  pair_region: np.ndarray,
+                                  total_num: int = 2000,
+                                  rng: Optional[np.random.Generator] = None
+                                  ):
+    """Sample spot pairs whose bit pair decodes to NOTHING -> (i, j) host
+    arrays (reference generate_random_invalid_pairs, decode.py:1314-1342:
+    spread `total_num` samples evenly over the invalid bit pairs,
+    skipping pairs whose bits lack enough spots).  Host NumPy: the same
+    generator calls in the same order as the JAX package's."""
+    if rng is None:
+        rng = np.random.default_rng(0)
+    bit_index, valid = np.asarray(bit_index), np.asarray(valid)
+    n_bits = pair_region.shape[0]
+    invalid_bit_pairs = [(a, b) for a in range(n_bits)
+                         for b in range(a + 1, n_bits)
+                         if pair_region[a, b] < 0]
+    rng.shuffle(invalid_bit_pairs)
+    if not invalid_bit_pairs:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    per_pair = int(np.ceil(total_num / len(invalid_bit_pairs)))
+    spots_of_bit = {b: np.flatnonzero((bit_index == b) & valid)
+                    for b in range(n_bits)}
+    ii, jj = [], []
+    for a, b in invalid_bit_pairs:
+        if len(ii) >= total_num:
+            break
+        sa, sb = spots_of_bit[a], spots_of_bit[b]
+        if len(sa) < per_pair or len(sb) < per_pair:
+            continue
+        ii.extend(rng.choice(sa, per_pair))
+        jj.extend(rng.choice(sb, per_pair))
+    return (np.asarray(ii[:total_num], np.int32),
+            np.asarray(jj[:total_num], np.int32))
+
+
+def group_reference_metrics(groups: SpotGroups, spots: torch.Tensor,
+                            positions: torch.Tensor):
+    """Per-group (mean intensity, min internal distance, ok) -- the
+    reference populations for self-scoring (reference generate_reference,
+    decode.py:684-691, intensity_metric='mean', dist_metric='min')."""
+    idx = groups.spot_idx.clamp_min(0).long()                     # (P, T)
+    member = (groups.spot_idx >= 0) & groups.ok[:, None]
+    cnt = member.sum(dim=1).clamp_min(1)
+    mean_int = torch.where(member, spots[idx, 0], 0.0).sum(dim=1) / cnt
+    pos = positions[idx]                                          # (P, T, 3)
+    d = torch.sqrt(((pos[:, :, None] - pos[:, None]) ** 2).sum(dim=-1))
+    t = idx.shape[1]
+    pair_ok = (member[:, :, None] & member[:, None]
+               & ~torch.eye(t, dtype=torch.bool, device=idx.device))
+    min_d = torch.where(pair_ok, d, float("inf")).amin(dim=(1, 2))
+    has_pair = pair_ok.any(dim=2).any(dim=1)
+    return (mean_int, torch.where(has_pair, min_d, float("nan")),
+            groups.ok & has_pair)
+
+
+def pair_metrics(spots: torch.Tensor, positions: torch.Tensor,
+                 i: torch.Tensor, j: torch.Tensor, ok: torch.Tensor):
+    """(mean intensity, distance) of explicit spot pairs."""
+    i, j = i.long(), j.long()
+    mean_int = 0.5 * (spots[i, 0] + spots[j, 0])
+    d = torch.sqrt(((positions[i] - positions[j]) ** 2).sum(dim=-1))
+    nan = float("nan")
+    return torch.where(ok, mean_int, nan), torch.where(ok, d, nan)
+
+
+def tuple_self_scores(groups: SpotGroups, spots: torch.Tensor,
+                      positions: torch.Tensor,
+                      invalid_i: Optional[torch.Tensor] = None,
+                      invalid_j: Optional[torch.Tensor] = None,
+                      invalid_ok: Optional[torch.Tensor] = None,
+                      intensity_factor: float = 1.0,
+                      inner_dist_factor: float = -1.0) -> torch.Tensor:
+    """Self-scores of selected groups against their own population, with
+    an optional invalid-pair negative control (reference
+    calculate_self_scores, decode.py:1087-1117):
+    score = f_dist * cdf_log_odds(min internal dist)
+          + f_int * cdf_log_odds(mean intensity), where the log odds
+    compare each metric's rank in the valid population against its rank
+    in the invalid-pair population (scoring.generate_cdf_scores)."""
+    ints, dists, ok = group_reference_metrics(groups, spots, positions)
+    pos_i, cnt_i = sort_ref_values(ints, ok)
+    pos_d, cnt_d = sort_ref_values(dists, ok)
+    neg_i = neg_d = ncnt_i = ncnt_d = None
+    if invalid_i is not None:
+        neg_ints, neg_dists = pair_metrics(spots, positions, invalid_i,
+                                           invalid_j, invalid_ok)
+        neg_i, ncnt_i = sort_ref_values(neg_ints)
+        neg_d, ncnt_d = sort_ref_values(neg_dists)
+    int_sc = generate_cdf_scores(ints, pos_i, cnt_i, neg_i, ncnt_i)
+    dist_sc = generate_cdf_scores(dists, pos_d, cnt_d, neg_d, ncnt_d)
+    score = intensity_factor * int_sc + inner_dist_factor * dist_sc
+    return torch.where(ok, score, float("-inf"))
+
+
+# ---------------------------------------------------------------------------
+# Candidate preparation: per-channel normalization + chromatic recentering
+# (reference normalize_ch_2_channels :1832-1851,
+# refine_chromatic_by_channel_center :1853-1876,
+# adjust_spots_by_chromatic_center :1878-1898)
+# ---------------------------------------------------------------------------
+
+
+def _channel_sums(values: torch.Tensor, channel_idx: torch.Tensor,
+                  valid: torch.Tensor, n_channels: int):
+    """(per-channel sums of `values` (N, ...), per-channel valid counts)."""
+    ch = channel_idx.long()
+    sums = torch.zeros((n_channels,) + values.shape[1:],
+                       device=values.device).index_add_(0, ch, values)
+    cnts = torch.zeros(n_channels, device=values.device).index_add_(
+        0, ch, valid.to(torch.float32))
+    return sums, cnts
+
+
+def normalize_intensities_by_channel(spots: torch.Tensor,
+                                     channel_idx: torch.Tensor,
+                                     valid: torch.Tensor,
+                                     n_channels: int) -> torch.Tensor:
+    """Divide each spot's height by its channel's mean intensity
+    (reference normalize_ch_2_channels, decode.py:1832-1851)."""
+    sums, cnts = _channel_sums(torch.where(valid, spots[:, 0], 0.0),
+                               channel_idx, valid, n_channels)
+    mean = sums / cnts.clamp_min(1.0)
+    out = spots.clone()
+    out[:, 0] = spots[:, 0] / mean[channel_idx.long()].clamp_min(1e-12)
+    return out
+
+
+def adjust_spots_by_chromatic_center(spots: torch.Tensor,
+                                     channel_idx: torch.Tensor,
+                                     valid: torch.Tensor,
+                                     n_channels: int,
+                                     ref_channel_idx: int = 0
+                                     ) -> torch.Tensor:
+    """Residual chromatic refinement: translate every channel's spot
+    cloud so its centroid matches the reference channel's (reference
+    adjust_spots_by_chromatic_center, decode.py:1878-1898; the dict-keyed
+    refine_chromatic_by_channel_center :1853-1876 is the same operation).
+    """
+    sums, cnts = _channel_sums(
+        torch.where(valid[:, None], spots[:, 1:4], 0.0), channel_idx, valid,
+        n_channels)
+    centers = sums / cnts.clamp_min(1.0)[:, None]
+    shift = centers - centers[ref_channel_idx][None]
+    out = spots.clone()
+    out[:, 1:4] = spots[:, 1:4] - shift[channel_idx.long()]
+    return out

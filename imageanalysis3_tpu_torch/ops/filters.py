@@ -271,6 +271,32 @@ def counting_median(im: torch.Tensor, bits: int = 18,
     return lo.to(torch.float32) / _SCALE
 
 
+def nanquantile(x: torch.Tensor, q: float, dim=None) -> torch.Tensor:
+    """NaN-ignoring linear quantile of float `x` over `dim` (None = all),
+    with the arithmetic of ``jnp.nanquantile``: sort (NaN last), position
+    f32(q) * (count - 1), then low * (1 - w) + high * w in f32; NaN where
+    nothing is finite.  So the median of an even count averages the two
+    middle values (``torch.nanmedian`` returns the lower one), and there
+    is no element limit (``torch.nanquantile`` refuses more than 2**24).
+    `dim` may be a tuple of trailing dims."""
+    if dim is None:
+        x, dim = x.reshape(-1), 0
+    elif isinstance(dim, tuple):
+        dims = sorted(d % x.ndim for d in dim)
+        if dims != list(range(x.ndim - len(dims), x.ndim)):
+            raise ValueError(f"nanquantile reduces trailing dims, got {dim}")
+        x, dim = x.flatten(dims[0]), dims[0]
+    s = torch.sort(x, dim=dim).values
+    n = (~torch.isnan(s)).sum(dim=dim, keepdim=True, dtype=torch.float32)
+    pos = torch.tensor(q, dtype=torch.float32, device=x.device) * (n - 1.0)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    w_hi = pos - lo
+    lo = torch.minimum(lo, n - 1.0).clamp_min(0.0).long()
+    hi = torch.minimum(hi, n - 1.0).clamp_min(0.0).long()
+    out = (s.gather(dim, lo) * (1.0 - w_hi) + s.gather(dim, hi) * w_hi)
+    return out.squeeze(dim)
+
+
 def counting_median_layers_and_global(im: torch.Tensor, bits: int = 18,
                                       subsample: int = 1):
     """(per-z-layer medians, global median) in ONE binary search.
