@@ -105,7 +105,21 @@ Phases, each of which raises (exit code != 0) on a failed check:
    picks, and ``tuple_self_scores`` against ``collect_invalid_pairs`` on
    phase 5's decoded groups; planted recovery >= 0.9, exclusivity, picks
    equal to the CPU's up to f32 ties, the median map within 1e-3 of
-   NumPy's float64 ``nanmedian``.
+   NumPy's float64 ``nanmedian``;
+10. the per-cell spot path at a lab's width: an 8x8 grid of segmented
+   nuclei in one 60x2048x2048 channel (20 dim spots each, 400 bright ones
+   outside), written as a .dax movie;
+   ``DaxProcesser._fit_spots_by_segmentation`` (seed_classify, lm_fit and
+   gather_cubes on every nucleus crop; >= 90 %
+   of planted spots in their cell at a median <= 0.05 px, every kept spot
+   within segment_search_radius of its mask, 4 cells equal to the port's
+   CPU run), the three kernels against their plain versions at the crop
+   shapes; the kept spots as a column table through the .npy files bit
+   for bit, ``spots_to_labels``, ``count_genes``, ``reconstruct_spot_image``
+   at full size against its one-spot-at-a-time version; 8 planted cells of
+   chromosomes 1, 2 and X through ``SpotMapper``, ``SpotPicker`` (recovery
+   >= 0.9 per homolog, 2 cells equal to the CPU's), ``batch_pick_spots`` on
+   a .npy decoded file, ``load_picked`` and ``interpolate_chr``.
 
 The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
@@ -121,7 +135,8 @@ nothing (so that it also times an older tree's); ``--only dax_path`` builds
 the four kernels of phase 7 and runs that phase alone; ``--only
 experiment`` builds the three kernels of phase 8 and runs that phase alone;
 ``--only picking`` runs phase 9 alone (no kernel; its self-scores then run
-on planted groups).
+on planted groups); ``--only cell_spots`` builds the per-cell path's three
+kernels and runs phase 10 alone.
 """
 
 from __future__ import annotations
@@ -3011,6 +3026,725 @@ def _picking_phase(torch, smi: str, decoded=None) -> dict:
     return rec
 
 
+#: phase 10's scene: a lab's FOV of segmented nuclei at bench.py's width
+CELL_GRID = 8                       # nuclei per row and column
+CELL_PITCH = 256                    # px between nucleus centres in x and y
+CELL_SEMI = (30.0, 70.0, 70.0)      # ellipsoid semi-axes (z, x, y) px
+CELL_DIM = 20                       # dim spots a nucleus
+CELL_DIM_HEIGHTS = (800.0, 1500.0)
+CELL_CLUTTER = 400                  # bright spots outside the nuclei
+CELL_CLUTTER_HEIGHT = 6000.0
+CELL_TH_SEED = 250.0
+CELL_NUM_SPOTS = 64
+CELL_SEARCH = 3                     # segment_search_radius
+CELL_PATH = ("seed_classify", "lm_fit", "gather_cubes")
+#: phase 10 (c): chromosomes (name, regions, copies) of a male cell, 8
+#: candidates a region: the true spot of each homolog and dim decoys
+CELL_CHROMS = (("1", 300, 2), ("2", 100, 2), ("X", 100, 1))
+CELL_CANDIDATES = 8
+CELL_PICK_CELLS = 8
+CELL_TRACE_STARTS = {"1": [(3000.0, 5000.0, 5000.0),
+                           (3000.0, 15000.0, 15000.0)],
+                     "2": [(4000.0, 15000.0, 5000.0),
+                           (4000.0, 5000.0, 15000.0)],
+                     "X": [(5000.0, 10000.0, 10000.0)]}
+
+
+def _nucleus_centres(shape):
+    """(cell id, (z, x, y) centre) of each nucleus of the grid."""
+    g, p = CELL_GRID, CELL_PITCH
+    return [(1 + g * i + j, np.array([(shape[0] - 1) / 2.0,
+                                      p / 2.0 + p * i, p / 2.0 + p * j]))
+            for i in range(g) for j in range(g)]
+
+
+def _ellipsoid_value(p, centre, semi=CELL_SEMI):
+    return (((np.asarray(p) - centre) / np.asarray(semi)) ** 2).sum(-1)
+
+
+def _nuclei_scene(torch, rng, shape, dev):
+    """Phase 10's scene: the label volume (int32 on `dev`) of a grid of
+    ellipsoidal nuclei, CELL_DIM dim spots inside each (at most 0.75 of
+    the way to its surface, 8 px apart), CELL_CLUTTER bright spots at least
+    8 px outside every nucleus, rendered over background 150 with shot and
+    read noise (bench.py's scene) -> (labels, uint16 stack, {cell: (20, 3)
+    dim centres}, (n, 3) clutter centres)."""
+    from imageanalysis3_tpu_torch import synthetic as syn
+
+    nuclei = _nucleus_centres(shape)
+    labels = torch.zeros(shape, dtype=torch.int32, device=dev)
+    zz = torch.arange(shape[0], device=dev, dtype=torch.float64)
+    for cid, c in nuclei:
+        lo = np.maximum(np.floor(c - CELL_SEMI).astype(int), 0)
+        hi = np.minimum(np.ceil(c + CELL_SEMI).astype(int) + 1, shape)
+        xs = torch.arange(lo[1], hi[1], device=dev, dtype=torch.float64)
+        ys = torch.arange(lo[2], hi[2], device=dev, dtype=torch.float64)
+        v = (((zz[lo[0]:hi[0], None, None] - c[0]) / CELL_SEMI[0]) ** 2
+             + ((xs[None, :, None] - c[1]) / CELL_SEMI[1]) ** 2
+             + ((ys[None, None, :] - c[2]) / CELL_SEMI[2]) ** 2)
+        box = labels[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        box[v <= 1.0] = cid
+    dim = {}
+    for cid, c in nuclei:
+        pts = []
+        while len(pts) < CELL_DIM:
+            p = c + rng.uniform(-1, 1, 3) * CELL_SEMI
+            if _ellipsoid_value(p, c) > 0.75 ** 2:
+                continue
+            if all(np.linalg.norm(p - q) >= 8.0 for q in pts):
+                pts.append(p)
+        dim[cid] = np.asarray(pts)
+    clutter = []
+    margin = 1.0 + 8.0 / min(CELL_SEMI)
+    centres = np.asarray([c for _, c in nuclei])
+    while len(clutter) < CELL_CLUTTER:
+        p = np.array([rng.uniform(8, shape[0] - 8),
+                      rng.uniform(8, shape[1] - 8),
+                      rng.uniform(8, shape[2] - 8)])
+        if (_ellipsoid_value(p, centres) <= margin ** 2).any():
+            continue
+        if all(np.linalg.norm(p - q) >= 8.0 for q in clutter[-200:]):
+            clutter.append(p)
+    clutter = np.asarray(clutter)
+    centers = np.vstack([np.vstack(list(dim.values())), clutter])
+    heights = np.concatenate([
+        rng.uniform(*CELL_DIM_HEIGHTS, len(nuclei) * CELL_DIM),
+        np.full(len(clutter), CELL_CLUTTER_HEIGHT)])
+    im = syn.render_spots(shape, centers, heights, background=150.0,
+                          device=dev)
+    stack = syn.noisy_uint16(im, seed=61)
+    return labels, stack, dim, clutter
+
+
+def _cell_recovery(spots, ids, dim):
+    """Per planted dim spot, the distance to the nearest kept spot of its
+    own cell -> (matched distances (< 1 px), n planted)."""
+    d_all = []
+    for cid, pts in dim.items():
+        mine = spots[ids == cid][:, 1:4]
+        for p in pts:
+            d_all.append(np.linalg.norm(mine - p, axis=1).min()
+                         if len(mine) else np.inf)
+    d_all = np.asarray(d_all)
+    return d_all[d_all < 1.0], len(d_all)
+
+
+def _near_own_mask(torch, labels, spots, ids, radius):
+    """Whether each spot's (2r+1)^3 cube around its rounded centre holds a
+    voxel of its own cell (an explicit gather, apart from spots_to_labels)."""
+    shape = torch.tensor(labels.shape, device=labels.device)
+    g = torch.arange(-radius, radius + 1, device=labels.device)
+    offs = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(
+        -1, 3)
+    base = torch.round(spots[:, 1:4]).to(torch.int64)
+    pos = base[:, None] + offs[None]
+    inb = ((pos >= 0) & (pos < shape)).all(-1)
+    pos = torch.minimum(pos.clamp_min(0), shape - 1)
+    lab = labels[pos[..., 0], pos[..., 1], pos[..., 2]]
+    return ((lab == ids[:, None].to(lab.dtype)) & inb).any(dim=1)
+
+
+def _plain_spot_image(torch, spots, shape, radius=8):
+    """The spot render one spot at a time (each spot's window sliced out of
+    the image and added to, in spot order): reconstruct_spot_image's plain
+    version, use_intensity=True, the spots' own widths."""
+    out = torch.zeros(shape, dtype=torch.float32, device=spots.device)
+    s = spots.double().cpu().numpy()
+    for k in range(len(s)):
+        cen = spots[k, 1:4].to(torch.float32)
+        base = np.round(s[k, 1:4].astype(np.float32)).astype(np.int64)
+        lo = np.maximum(base - radius, 0)
+        hi = np.minimum(base + radius + 1, shape)
+        if (hi <= lo).any():
+            continue
+        axes = [torch.arange(int(lo[a]), int(hi[a]), device=spots.device,
+                             dtype=torch.float32) for a in range(3)]
+        sig = torch.as_tensor(np.maximum(s[k, 5:8], 1e-3).astype(np.float32),
+                              device=spots.device)
+        q = [((axes[a] - cen[a]) / sig[a]) ** 2 for a in range(3)]
+        qsum = q[0][:, None, None] + q[1][None, :, None] + q[2][None, None, :]
+        out[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] += \
+            spots[k, 0].to(torch.float32) * torch.exp(-0.5 * qsum)
+    return out
+
+
+def _planted_pick_cell(rng):
+    """One cell of phase 10 (c): per CELL_CHROMS chromosome, polymer traces
+    of its copies (300 nm steps, from CELL_TRACE_STARTS) and per region
+    CELL_CANDIDATES candidate spots in a random order: the trace's point at
+    30 nm jitter (heights 800-1500) for each copy, the rest decoys spread
+    4000 nm around a trace's centre at heights 200-900 (the picker weighs
+    intensity 5 of 8, so decoys are dimmer than most true spots, as
+    tests/test_picker.py plants its distractors) -> (candidate spot rows
+    (N, 11) px, bits (N,), {chr: (copies, R) true row}), bit = region
+    index + 1."""
+    rows, bits, truth, region = [], [], {}, 0
+    for chrom, n, copies in CELL_CHROMS:
+        tr = _polymer_traces(rng, n, CELL_TRACE_STARTS[chrom][:copies])
+        truth[chrom] = np.zeros((copies, n), np.int64)
+        for r in range(n):
+            slots = rng.permutation(CELL_CANDIDATES)
+            for s in slots:
+                if s < copies:
+                    zxy = tr[s, r] + rng.normal(0, 30.0, 3)
+                    h = rng.uniform(800, 1500)
+                    truth[chrom][s, r] = len(rows)
+                else:
+                    zxy = tr[rng.integers(copies)].mean(0) \
+                        + rng.normal(0, 4000.0, 3)
+                    h = rng.uniform(200, 900)
+                row = np.zeros(11)
+                row[0], row[1:4], row[5:8] = h, zxy / PICK_PX, 1.5
+                rows.append(row)
+                bits.append(region + 1)
+            region += 1
+    return np.asarray(rows), np.asarray(bits), truth
+
+
+def _sequential_codebook():
+    """The sequential codebook of CELL_CHROMS: region k reads bit k + 1 and
+    is named 'chr:start-end' (1 Mb apart)."""
+    names, chrs = [], []
+    for chrom, n, _ in CELL_CHROMS:
+        for r in range(n):
+            names.append(f"{chrom}:{(r + 1) * 1_000_000}-"
+                         f"{(r + 1) * 1_000_000 + 500_000}")
+            chrs.append(chrom)
+    n = len(names)
+    cb = {"name": np.asarray(names), "id": np.arange(n),
+          "chr": np.asarray(chrs)}
+    eye = np.eye(n, dtype=np.int8)
+    for b in range(n):
+        cb[str(b + 1)] = eye[:, b]
+    return cb
+
+
+def _picker_coords(mapped):
+    """The picker's candidate table from SpotMapper's: positions in nm,
+    the fitted height as intensity."""
+    return {"region_name": mapped["region_name"], "chr": mapped["chr"],
+            "start": mapped["start"], "end": mapped["end"],
+            **{f"center_{a}": mapped[a] * px
+               for a, px in zip(("z", "x", "y"), PICK_PX)},
+            "center_intensity": mapped["height"]}
+
+
+def _pick_recovery(picker, truth):
+    """Per chromosome and homolog, the share of regions whose filtered pick
+    is the planted spot of the planted homolog it matches best."""
+    out = {}
+    for chrom, t in truth.items():
+        inds = picker.chr_2_filtered_inds[chrom].cpu().numpy()
+        out[chrom] = [float(max((inds[h] == t[p]).mean()
+                                for p in range(len(t))))
+                      for h in range(len(inds))]
+    return out
+
+
+def _cell_kernel_checks(torch, crops, seeds, peaks, smi: str) -> dict:
+    """The three kernels of the per-cell path at its launch shapes, each
+    against its plain version: seed_classify on the nucleus crops (the
+    common crop shape) and on a 12x32x32 crop (the JAX test's scale) within
+    _check_seed_classify's tolerances; lm_fit on a crop's round 0 (its
+    seeds, P = 512, 30 iterations) and its refit within _check_lm's; the
+    gather's ball entry at the crop's seeds (r = 5), equal.  CUDA-event
+    medians over the crops with the plain versions' and the bounds."""
+    from imageanalysis3_tpu_torch.ops import gather_kernel as gk
+    from imageanalysis3_tpu_torch.ops import lm_kernel
+    from imageanalysis3_tpu_torch.ops import seed_kernels as sk
+    from imageanalysis3_tpu_torch.ops.filters import gaussian_kernel1d
+
+    k_fg, k_bg = gaussian_kernel1d(0.75), gaussian_kernel1d(7.5)
+    out = {}
+    cls_in = [(*sk.z_pass_pair(c, k_fg, k_bg), k_fg, k_bg, CELL_TH_SEED,
+               N_LVL, EDGE) for c in crops]
+    small = crops[0][24:36, 60:92, 60:92].contiguous()
+    checks = [_check_seed_classify(torch, sk, inp) for inp in cls_in]
+    small_chk = _check_seed_classify(
+        torch, sk, (*sk.z_pass_pair(small, k_fg, k_bg), k_fg, k_bg,
+                    CELL_TH_SEED, N_LVL, EDGE))
+    ms = _events_ms(torch, sk.fused_seed_classify_cuda, cls_in,
+                    queue_ahead=True)
+    plain_ms = _events_ms(torch, sk.fused_seed_classify_plain, cls_in,
+                          queue_ahead=False)
+    nvox = float(crops[0].numel())
+    kb, kf = len(k_bg), len(k_fg)
+    n_qual = max(c["n_qual"] for c in checks)
+    bound = _bound(4 * nvox * 3 + 4 * N_LVL,
+                   nvox * (2 * (2 * kf - 1) + 2 * (2 * kb - 1) + 55)
+                   + 4 * n_qual, peaks)
+    out["seed_classify"] = {
+        "shape": list(crops[0].shape), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "max_abs_err": max(c["max_abs_err"] for c in checks + [small_chk]),
+        "n_disagree": [c["n_disagree"] for c in checks],
+        "small_12x32x32": small_chk}
+    print(f"cell spots kernels: seed_classify PASS at {tuple(crops[0].shape)}"
+          f" on {len(crops)} crops (qualification differs on "
+          f"{out['seed_classify']['n_disagree']} voxels, max |dqdiff| "
+          f"{out['seed_classify']['max_abs_err']:.3g}) and at 12x32x32 "
+          f"(max |dqdiff| {small_chk['max_abs_err']:.3g}, identical "
+          f"{small_chk['identical']}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({ms / bound[0]:.2f}x)  [{smi}]")
+
+    r0s = [_lm_round0(torch, c, s.coords.to(torch.float32), s.valid, 5, 30)
+           for c, s in zip(crops, seeds)]
+    shape = tuple(crops[0].shape)
+    batches = {"round 0": ([r["lm_in"] for r in r0s],
+                           [(r["svalid"], r["base"]) for r in r0s])}
+    ref_in, ref_ok = [], []
+    for r in r0s:
+        pp, ep = lm_kernel.lm_fit_plain(*r["lm_in"])
+        lm_in, sel = _lm_refit(torch, r, pp, ep)
+        ref_in.append(lm_in)
+        ref_ok.append((r["svalid"][sel], r["base"][sel]))
+    batches["refit"] = (ref_in, ref_ok)
+    for label, (inputs, oks) in batches.items():
+        err, n_valid, decided = 0.0, [], []
+        for lm_in, (sv, base) in zip(inputs, oks):
+            e, nv, _, dec = _check_lm(torch, f"cell crop {label}", lm_in, sv,
+                                      base, shape)
+            err, n_valid = max(err, e), n_valid + [nv]
+            decided.append(dec)
+        ms = _events_ms(torch, lm_kernel.lm_fit_cuda, inputs,
+                        queue_ahead=True)
+        plain_ms = _events_ms(torch, lm_kernel.lm_fit_plain, inputs,
+                              queue_ahead=False)
+        n, p = inputs[0][0].shape
+        it = inputs[0][8]
+        bound = _lm_bound(n, p, it, peaks)
+        out[f"lm_fit {label}"] = {
+            "spots": n, "px": p, "iters": it, "n_valid": n_valid,
+            "order_decided": decided, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"cell spots kernels: lm_fit {label} PASS  {n} spots x {p} px "
+              f"x {it} iters, valid {n_valid}, decided by the summation "
+              f"order {decided}, max |dcentre| {err:.3g} px; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} "
+              f"ms by {bound[1]} ({ms / bound[0]:.2f}x)  [{smi}]")
+
+    ball_in = [(c, s.coords.to(torch.float32), 5) for c, s in zip(crops,
+                                                                  seeds)]
+    for inp in ball_in:
+        got, want = gk.gather_ball_cuda(*inp), gk.gather_ball_plain(*inp)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("gather_cubes (ball) at the cell crops: "
+                                 "differs from its plain version")
+    ms = _events_ms(torch, gk.gather_ball_cuda, ball_in, queue_ahead=True)
+    plain_ms = _events_ms(torch, gk.gather_ball_plain, ball_in,
+                          queue_ahead=False)
+    lib_in = [(c, _ball_flat_index(torch, gk, c.shape, s, r))
+              for c, s, r in ball_in]
+    lib_ms = _events_ms(torch, lambda im, idx: im.reshape(-1)[idx], lib_in,
+                        queue_ahead=True)
+    n, p = ball_in[0][1].shape[0], len(gk.ball_offsets(5))
+    bound = _bound(n * p * (4 + 4 + 12 + 1) + 12 * (n + p), 0.0, peaks)
+    out["gather_cubes"] = {"seeds": n, "radius": 5, "px": p,
+                           "max_abs_err": 0.0, "ms": ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": bound[0], "bound_by": bound[1]}
+    print(f"cell spots kernels: gather_cubes (ball) PASS  {n} seeds x {p} px"
+          f" (r = 5), equal to its plain version; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, im.reshape(-1)[idx] {lib_ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x)  [{smi}]")
+    return out
+
+
+def _cell_spots_phase(torch, smi: str, peaks) -> dict:
+    """Phase 10: the per-cell spot path at a lab's width, on the card.
+
+    (a) Per-cell fit: one 60x2048x2048 uint16 channel of an 8x8 grid of
+    ellipsoidal nuclei (semi-axes 30x70x70 px, 256 px apart), 20 dim spots
+    (800-1500) in each and 400 bright ones (6000) outside them
+    (_nuclei_scene), written as a one-channel .dax movie into build/ and
+    read by ``DaxProcesser._load_image``; then
+    ``DaxProcesser._fit_spots_by_segmentation`` (th_seed 250, 64 spots a
+    cell) with every kernel count set to 0 just before and read just
+    after: seed_classify, lm_fit and gather_cubes must launch.  Gates: >=
+    90 % of the 1280 planted dim spots found in their own cell within 1 px
+    at a median error <= 0.05 px; every kept spot within
+    segment_search_radius of its own cell's mask; the port's CPU run on
+    the 2x2 block of nuclei at the origin equal in its cells and spots to
+    the card's (centres within 1e-3 px, heights rtol 1e-2, widths 1e-3);
+    the three kernels against their plain versions at the path's launch
+    shapes (_cell_kernel_checks).  Reported: each crop's seconds (seeding
+    and fit apart), the step's, and what whole-FOV ``fit_fov_image``
+    finds with 64 seeds and with 64 a cell.  (b) Spot tables: the kept
+    spots with their cell ids as a column table, saved and loaded through
+    the .npy backend (and h5py where it imports), bit for bit;
+    ``spots_to_labels`` (r = 10) over them equal to their cells;
+    ``count_genes``; ``reconstruct_spot_image`` of the 60x2048x2048
+    stack within rtol 1e-5 / atol 1e-6 of the plain one-spot-at-a-time
+    render.  (c) Decode and pick: CELL_PICK_CELLS planted cells
+    (_planted_pick_cell: chromosomes 1, 2 and X of 300, 100 and 100
+    regions, 2, 2 and 1 copies, 8 candidates a region) as a sequential
+    codebook and candidate tables; ``SpotMapper`` then
+    ``SpotPicker.iterative_assignment(max_niter=10)`` on the card per
+    cell; planted recovery >= 0.9 per homolog; the picks of cells 0 and 1
+    equal to the port's CPU run, n_iterations too; ``batch_pick_spots`` on
+    cell 0 written as a decoded file in the .npy layout, equal to the
+    in-memory picks, and ``load_picked`` equal to what was saved;
+    ``interpolate_chr`` on every picked trace.  Timed on the host clock
+    around ``torch.cuda.synchronize()``."""
+    import shutil
+    import tempfile
+
+    from imageanalysis3_tpu_torch.analysis import (count_genes,
+                                                   interpolate_chr,
+                                                   spots_to_labels)
+    from imageanalysis3_tpu_torch.decode import (SpotMapper, SpotPicker,
+                                                 batch_pick_spots)
+    from imageanalysis3_tpu_torch.io import (interleave_channels,
+                                             load_table_hdf5,
+                                             save_table_hdf5, spots_to_table,
+                                             write_dax)
+    from imageanalysis3_tpu_torch.io.store import _h5py
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+    from imageanalysis3_tpu_torch.ops import cell_fitting as cf
+    from imageanalysis3_tpu_torch.ops.gaussian_fit import fit_fov_image
+    from imageanalysis3_tpu_torch.ops.seeding import get_seeds
+    from imageanalysis3_tpu_torch.pipeline import DaxProcesser
+    from imageanalysis3_tpu_torch.spots import reconstruct_spot_image
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    secs = {}
+    rec = {"seconds": secs}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    shape = SHAPE
+    rng = np.random.default_rng(60)
+    labels, stack, dim, clutter = timed(
+        "scene", lambda: _nuclei_scene(torch, rng, shape, dev))
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    movie_bytes = (shape[0] + 2 * DAX_BUFFER) * shape[1] * shape[2] * 2
+    free = shutil.disk_usage(root).free
+    if free < 2 * movie_bytes:
+        raise AssertionError(f"cell spots: {free / 1e9:.2f} GB free under "
+                             f"{root}, need {2 * movie_bytes / 1e9:.2f}")
+    tmp = tempfile.mkdtemp(prefix="cell_spots_", dir=root)
+    try:
+        # ---- (a) per-cell fit ------------------------------------------
+        path = os.path.join(tmp, "H0", "Conv_zscan_00.dax")
+        os.makedirs(os.path.dirname(path))
+        movie = interleave_channels([stack.cpu().numpy()],
+                                    buffer_frames=DAX_BUFFER)
+        timed("write_dax", lambda: write_dax(path, movie))
+        del movie
+        proc = DaxProcesser(path, correction_channels=["750"],
+                            all_channels=["750"], single_im_size=shape,
+                            num_buffer_frames=DAX_BUFFER, device=dev)
+        timed("load_image", proc._load_image)
+        if not torch.equal(proc.ims["750"], stack.to(torch.float32)):
+            raise AssertionError("cell spots: the loaded stack differs from "
+                                 "the written one")
+        del stack
+        im = proc.ims["750"]
+        # one untimed call first, as every timed path of this script
+        proc._fit_spots_by_segmentation(
+            "750", labels, th_seed=CELL_TH_SEED, num_spots=CELL_NUM_SPOTS,
+            segment_search_radius=CELL_SEARCH)
+        sync()
+        reset_kernel_launches()
+        spots, ids = timed("fit_by_segmentation",
+                           lambda: proc._fit_spots_by_segmentation(
+                               "750", labels, th_seed=CELL_TH_SEED,
+                               num_spots=CELL_NUM_SPOTS,
+                               segment_search_radius=CELL_SEARCH))
+        launches = kernel_launches()
+        rec["launches"] = launches
+        for name in CELL_PATH:
+            if launches[name] < 1:
+                raise AssertionError(f"cell spots: kernel {name} did not "
+                                     f"launch on the per-cell path: "
+                                     f"{launches}")
+        sp_np, ids_np = spots.cpu().numpy(), ids.cpu().numpy()
+        matched, n_planted = _cell_recovery(sp_np, ids_np, dim)
+        rec["fit"] = {"kept": len(sp_np), "cells": int(len(np.unique(ids_np))),
+                      "planted": n_planted, "matched": len(matched),
+                      "median_err_px": float(np.median(matched))
+                      if len(matched) else float("nan"),
+                      "per_cell_kept": np.bincount(ids_np).tolist()}
+        if not (len(matched) >= 0.9 * n_planted
+                and rec["fit"]["median_err_px"] <= 0.05):
+            raise AssertionError(f"cell spots: per-cell fit {rec['fit']}")
+        near = _near_own_mask(torch, labels, spots, ids, CELL_SEARCH)
+        if not bool(near.all()):
+            raise AssertionError(f"cell spots: {int((~near).sum())} kept "
+                                 f"spots lie beyond segment_search_radius "
+                                 f"of their cell's mask")
+
+        # each crop alone: seeding and fit apart
+        boxes = cf.segmentation_bounding_boxes(labels, pad=3)
+        cids = sorted(boxes)
+        crop = cf._common_crop_shape([boxes[c] for c in cids], shape)
+        origins = []
+        for c in cids:
+            lo, hi = boxes[c]
+            origins.append(np.round((lo + hi) / 2.0 - np.asarray(crop) / 2.0))
+        origins = np.clip(np.asarray(origins, np.int64), 0,
+                          np.asarray(shape) - np.asarray(crop))
+        crops, crop_seeds, seed_s, fit_s = [], [], [], []
+        for o in origins:
+            c = im[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1],
+                   o[2]:o[2] + crop[2]].contiguous()
+            sync()
+            t0 = time.perf_counter()
+            s = get_seeds(c, max_num_seeds=CELL_NUM_SPOTS,
+                          th_seed=CELL_TH_SEED)
+            sync()
+            t1 = time.perf_counter()
+            cf.fit_spots_in_crops(c, np.zeros((1, 3), np.int64), crop,
+                                  max_num_seeds=CELL_NUM_SPOTS,
+                                  th_seed=CELL_TH_SEED)
+            sync()
+            seed_s.append(t1 - t0)
+            fit_s.append(time.perf_counter() - t1)
+            if len(crops) < 3:
+                crops.append(c)
+                crop_seeds.append(s)
+        rec["crop_shape"] = list(crop)
+        # a crop's whole fit (seeding included) and its seeding alone
+        rec["per_crop_s"] = {
+            "seeding_median": statistics.median(seed_s),
+            "crop_median": statistics.median(fit_s),
+            "crop_min": min(fit_s), "crop_max": max(fit_s),
+            "crops": len(fit_s)}
+        rec["kernels"] = _cell_kernel_checks(torch, crops, crop_seeds, peaks,
+                                             smi)
+        del crops, crop_seeds
+
+        # the port's CPU run on the 2x2 block of nuclei at the origin
+        block = 2 * CELL_PITCH
+        sub_ids = [1 + CELL_GRID * i + j for i in range(2) for j in range(2)]
+        t0 = time.perf_counter()
+        cpu_sp, cpu_ids = cf.fit_spots_by_segmentation(
+            im[:, :block, :block].cpu(), labels[:, :block, :block].cpu(),
+            th_seed=CELL_TH_SEED, num_spots=CELL_NUM_SPOTS,
+            segment_search_radius=CELL_SEARCH)
+        secs["cpu_reference_4_cells"] = time.perf_counter() - t0
+        mine = np.isin(ids_np, sub_ids)
+        card_sp, card_ids = sp_np[mine], ids_np[mine]
+        cpu_sp, cpu_ids = cpu_sp.numpy(), cpu_ids.numpy()
+        if not np.array_equal(card_ids, cpu_ids):
+            raise AssertionError(f"cell spots: the CPU run keeps "
+                                 f"{np.bincount(cpu_ids).tolist()} spots a "
+                                 f"cell, the card "
+                                 f"{np.bincount(card_ids).tolist()}")
+        # pair each card spot with the CPU's nearest in its cell (seeds of
+        # near-equal height may rank apart between the devices)
+        d = np.linalg.norm(card_sp[:, None, 1:4] - cpu_sp[None, :, 1:4],
+                           axis=-1)
+        d[card_ids[:, None] != cpu_ids[None, :]] = np.inf
+        pair = d.argmin(axis=1)
+        if len(np.unique(pair)) != len(pair):
+            raise AssertionError("cell spots: the card's spots do not pair "
+                                 "one to one with the CPU run's")
+        cpu_sp = cpu_sp[pair]
+        d_cen = np.abs(card_sp[:, 1:4] - cpu_sp[:, 1:4]).max()
+        d_h = (np.abs(card_sp[:, 0] - cpu_sp[:, 0])
+               / np.abs(cpu_sp[:, 0])).max()
+        d_w = np.abs(card_sp[:, 5:8] - cpu_sp[:, 5:8]).max()
+        rec["cpu_reference"] = {"spots": len(cpu_sp), "max_dcentre": float(
+            d_cen), "max_rel_dheight": float(d_h), "max_dwidth": float(d_w)}
+        if not (d_cen <= 1e-3 and d_h <= 1e-2 and d_w <= 1e-3):
+            raise AssertionError(f"cell spots: card vs CPU "
+                                 f"{rec['cpu_reference']}")
+
+        # whole-FOV fitting with the same budgets
+        whole = {}
+        for label, budget in (("64 seeds", CELL_NUM_SPOTS),
+                              ("64 a cell", CELL_NUM_SPOTS * len(cids))):
+            res = timed(f"fit_fov_image {label}", lambda: fit_fov_image(
+                im, max_num_seeds=budget, th_seed=CELL_TH_SEED))
+            got = res.spots[res.valid].cpu().numpy()
+            d = []
+            for pts in dim.values():
+                for p in pts:
+                    d.append(np.linalg.norm(got[:, 1:4] - p, axis=1).min()
+                             if len(got) else np.inf)
+            d = np.asarray(d)
+            whole[label] = {"budget": budget, "valid": int(len(got)),
+                            "dim_found": int((d < 1.0).sum()),
+                            "dim_lost": int((d >= 1.0).sum())}
+        rec["whole_fov"] = whole
+        print(f"cell spots (a): crop {tuple(crop)}, {len(cids)} cells; "
+              f"kept {rec['fit']['kept']}, {rec['fit']['matched']} of "
+              f"{n_planted} planted found in their cell at a median "
+              f"{rec['fit']['median_err_px']:.5f} px; all within "
+              f"{CELL_SEARCH} px of their mask; step "
+              f"{secs['fit_by_segmentation']:.4f} s "
+              f"({secs['fit_by_segmentation'] / len(cids) * 1e3:.2f} ms a "
+              f"crop); each crop alone {rec['per_crop_s']}; launches "
+              f"{launches}; CPU reference on 4 cells "
+              f"{rec['cpu_reference']} in "
+              f"{secs['cpu_reference_4_cells']:.2f} s; whole FOV {whole}"
+              f"  [{smi}]")
+
+        # ---- (b) spot tables -------------------------------------------
+        table = timed("spots_to_table", lambda: spots_to_table(
+            spots, np.ones(len(sp_np), np.int64), ["750"] * len(sp_np),
+            fov_id=0, cell_id=ids, uid="fov0"))
+        backends = ["npy"] + (["h5py"] if _h5py() is not None else [])
+        rec["tables"] = {}
+        for backend in backends:
+            tpath = os.path.join(tmp, f"cell_spots.{backend}")
+            timed(f"save_table_{backend}", lambda: save_table_hdf5(
+                table, tpath, "cell_spots", backend=backend))
+            back = timed(f"load_table_{backend}", lambda: load_table_hdf5(
+                tpath, "cell_spots", backend=backend))
+            same = list(back) == list(table) and all(
+                (back[c].tobytes() == table[c].tobytes()
+                 and back[c].dtype == table[c].dtype)
+                if table[c].dtype.kind in "biuf"
+                else list(back[c]) == [str(v) for v in table[c]]
+                for c in table)
+            rec["tables"][backend] = same
+            if not same:
+                raise AssertionError(f"cell spots: the {backend} table "
+                                     f"differs from the saved one")
+        got_lab = timed("spots_to_labels", lambda: spots_to_labels(
+            labels, spots[:, 1:4], torch.ones(len(sp_np), dtype=torch.bool,
+                                              device=dev),
+            search_radius=10))
+        if not torch.equal(got_lab, ids):
+            raise AssertionError("cell spots: spots_to_labels (r = 10) "
+                                 "differs from the kept spots' cells")
+        counts, cells, _ = timed("count_genes",
+                                 lambda: count_genes({1: got_lab}))
+        if not np.array_equal(counts[:, 0],
+                              np.bincount(ids_np)[cells]):
+            raise AssertionError("cell spots: count_genes differs from the "
+                                 "kept spots per cell")
+        img = timed("reconstruct_spot_image", lambda: reconstruct_spot_image(
+            spots, shape, use_intensity=True))
+        plain = timed("reconstruct_plain", lambda: _plain_spot_image(
+            torch, spots, shape))
+        err = float((img - plain).abs().max())
+        ok = bool(torch.allclose(img, plain, rtol=1e-5, atol=1e-6))
+        rec["render"] = {"max_abs_err": err, "max": float(img.max()),
+                         "spots": len(sp_np)}
+        del img, plain
+        if not ok:
+            raise AssertionError(f"cell spots: reconstruct_spot_image vs "
+                                 f"its plain version {rec['render']}")
+        steps_b = {k: round(v, 4) for k, v in secs.items() if k.startswith(
+            ("save", "load_table", "spots_", "count", "recon"))}
+        print(f"cell spots (b): table of {len(sp_np)} spots x "
+              f"{len(table)} columns equal after "
+              f"{' and '.join(backends)}; spots_to_labels (r = 10) equal to "
+              f"the cells; count_genes over {len(cells)} cells; render "
+              f"{rec['render']}; seconds {steps_b}  [{smi}]")
+        del labels, proc, im, spots
+
+        # ---- (c) decode and pick ---------------------------------------
+        codebook = _sequential_codebook()
+        prng = np.random.default_rng(62)
+        pcells = [_planted_pick_cell(prng) for _ in range(CELL_PICK_CELLS)]
+        rec["pick"] = []
+        pickers = []
+        for k, (rows, bits, truth) in enumerate(pcells):
+            cand = spots_to_table(rows, bits, ["647"] * len(bits), fov_id=0,
+                                  cell_id=k)
+            mapped = timed("spot_mapper",
+                           lambda: SpotMapper(cand, codebook).filtered_spots)
+            coords = _picker_coords(mapped)
+            picker = SpotPicker(coords, codebook, device=dev)
+            timed("picker", lambda: picker.iterative_assignment(max_niter=10))
+            if len(mapped["bit"]) != len(rows):
+                raise AssertionError(f"cell spots: SpotMapper kept "
+                                     f"{len(mapped['bit'])} of {len(rows)} "
+                                     f"candidates, all of whose bits map")
+            recov = _pick_recovery(picker, truth)
+            traces = [picker.chr_2_filtered_hzxys[c][h, :, 1:]
+                      for c in picker.chr_2_filtered_hzxys
+                      for h in range(picker.chr_2_filtered_hzxys[c].shape[0])]
+            filled = timed("interpolate_chr",
+                           lambda: [interpolate_chr(t) for t in traces])
+            cell = {"n_iterations": picker.n_iterations,
+                    "recovery": recov, "candidates": len(rows),
+                    "traces_finite": all(bool(np.isfinite(f).all())
+                                         for f in filled)}
+            if k < 2:
+                ref = SpotPicker(coords, codebook, device="cpu")
+                ref.iterative_assignment(max_niter=10)
+                same = (ref.n_iterations == picker.n_iterations and all(
+                    torch.equal(ref.chr_2_homolog_inds[c],
+                                picker.chr_2_homolog_inds[c].cpu())
+                    and torch.equal(ref.chr_2_filtered_inds[c],
+                                    picker.chr_2_filtered_inds[c].cpu())
+                    for c in picker.chr_2_homolog_inds))
+                cell["equal_to_cpu"] = same
+                if not same:
+                    raise AssertionError(f"cell spots: picks of cell {k} "
+                                         f"differ from the CPU run's")
+            rec["pick"].append(cell)
+            pickers.append((coords, picker))
+            if min(min(v) for v in recov.values()) < 0.9 or \
+                    not cell["traces_finite"]:
+                raise AssertionError(f"cell spots: picking cell {k}: {cell}")
+        coords, picker = pickers[0]
+        dec = os.path.join(tmp, "decoded_cell0")
+        save_table_hdf5(coords, dec, "seqLib/candSpots", backend="npy")
+        save_table_hdf5(codebook, dec, "seqLib/codebook", backend="npy")
+        picked = os.path.join(tmp, "picked_cell0")
+        os.makedirs(picked)
+        again = timed("batch_pick_spots", lambda: batch_pick_spots(
+            dec, picked, num_expected_lib=1, device=dev))
+        back = timed("load_picked", lambda: SpotPicker.load_picked(
+            picked, device=dev))
+        equal_batch = all(torch.equal(again.chr_2_homolog_inds[c],
+                                      picker.chr_2_homolog_inds[c])
+                          for c in picker.chr_2_homolog_inds)
+        equal_back = all(
+            torch.equal(getattr(back, name)[c].nan_to_num(-7.0),
+                        getattr(again, name)[c].nan_to_num(-7.0))
+            for name in ("chr_2_homolog_hzxys", "chr_2_homolog_inds",
+                         "chr_2_filtered_hzxys", "chr_2_filtered_inds",
+                         "chr_2_homolog_centers", "chr_2_scores")
+            for c in getattr(again, name)) \
+            and back.chr_2_copy_num == again.chr_2_copy_num
+        rec["batch_pick"] = {"equal_to_in_memory": equal_batch,
+                             "round_trip_equal": equal_back}
+        if not (equal_batch and equal_back):
+            raise AssertionError(f"cell spots: batch_pick_spots / "
+                                 f"load_picked {rec['batch_pick']}")
+        rec["s_per_pick_cell"] = (secs["spot_mapper"] + secs["picker"]) \
+            / CELL_PICK_CELLS
+        print(f"cell spots (c): {CELL_PICK_CELLS} cells of "
+              f"{pcells[0][0].shape[0]} candidates: "
+              f"{[c['n_iterations'] for c in rec['pick']]} iterations, "
+              f"recovery {[c['recovery'] for c in rec['pick']]}; cells 0, 1 "
+              f"equal to the CPU's; {rec['s_per_pick_cell']:.4f} s a cell "
+              f"(SpotMapper {secs['spot_mapper'] / CELL_PICK_CELLS:.4f}, "
+              f"picker {secs['picker'] / CELL_PICK_CELLS:.4f}); "
+              f"interpolate_chr "
+              f"{secs['interpolate_chr'] / CELL_PICK_CELLS:.4f} s a cell; batch_pick_spots {secs['batch_pick_spots']:.4f} s,"
+              f" load_picked {secs['load_picked']:.4f} s, both equal  [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"cell spots: phase {rec['phase_seconds']:.1f} s with its CPU "
+          f"references; peak memory {rec['peak_memory_bytes'] / 2**30:.2f} "
+          f"GiB; seconds { {k: round(v, 4) for k, v in secs.items()} }  "
+          f"[{smi}]")
+    return rec
+
+
 def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
     """One main-path round under torch.profiler: device time by kernel and
     the device's busy share of the round's wall time."""
@@ -3049,7 +3783,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["seed_classify", "seed_pyramid",
                                        "lm_fit", "dual_blur", "level_stencil",
                                        "gather_cubes", "gather_blocks",
-                                       "dax_path", "experiment", "picking"],
+                                       "dax_path", "experiment", "picking",
+                                       "cell_spots"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
@@ -3057,7 +3792,8 @@ def main(argv=None) -> int:
                          "nothing; dax_path builds the on-disk path's "
                          "kernels and runs that phase alone, experiment "
                          "the experiment driver's, picking phase 9 (no "
-                         "kernel)")
+                         "kernel), cell_spots the per-cell path's three "
+                         "kernels and phase 10")
     args = ap.parse_args(argv)
 
     import torch
@@ -3093,6 +3829,7 @@ def main(argv=None) -> int:
     print(f"peaks used for bounds: {peaks[2]}")
     only = {"gather_blocks": ["gather_cubes"], "dax_path": list(DAX_PATH),
             "experiment": list(PYRAMID_PATH), "picking": [],
+            "cell_spots": list(CELL_PATH),
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -3110,6 +3847,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "picking":
         _picking_phase(torch, smi)
+        return 0
+    if args.only == "cell_spots":
+        _cell_spots_phase(torch, smi, peaks)
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -3325,6 +4065,11 @@ def main(argv=None) -> int:
     # ---- 9. picking at a lab's width ------------------------------------------
     record["picking"] = _picking_phase(torch, smi, decoded)
     del decoded
+    torch.cuda.empty_cache()
+
+    # ---- 10. the per-cell spot path -------------------------------------------
+    record["cell_spots"] = cell = _cell_spots_phase(torch, smi, peaks)
+    cell_launches, cell_kernels = cell["launches"], cell["kernels"]
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -3343,10 +4088,14 @@ def main(argv=None) -> int:
          "bound_by": lm_bound[1], "library_ms": None,
          "dax_path_launches": dax_launches["lm_fit"],
          "experiment_launches": exp_launches["lm_fit"],
+         "cell_spots_launches": cell_launches["lm_fit"],
          "shapes": {k: {f: v[f] for f in ("spots", "px", "iters", "ms",
                                           "plain_ms", "bound_ms",
                                           "max_abs_err")}
-                    for k, v in lm_shapes.items()}},
+                    for k, v in {**lm_shapes, **{
+                        f"cell crop {k[len('lm_fit '):]}": v
+                        for k, v in cell_kernels.items()
+                        if k.startswith("lm_fit")}}.items()}},
         {"name": "seed_classify", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/seed_classify.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:522",
@@ -3354,7 +4103,11 @@ def main(argv=None) -> int:
          "max_abs_err": cls["max_abs_err"], "ms": cls_ms,
          "plain_ms": cls_plain_ms, "bound_ms": cls_bound[0],
          "bound_by": cls_bound[1], "library_ms": None,
-         "dax_path_launches": dax_launches["seed_classify"]},
+         "dax_path_launches": dax_launches["seed_classify"],
+         "cell_spots_launches": cell_launches["seed_classify"],
+         "cell_crop": {k: cell_kernels["seed_classify"][k]
+                       for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "max_abs_err")}},
         {"name": "dual_blur", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/dual_blur.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:280",
@@ -3383,7 +4136,10 @@ def main(argv=None) -> int:
                       "library_ms")},
          "dax_path_launches": dax_launches["gather_cubes"],
          "experiment_launches": exp_launches["gather_cubes"],
-         "entries": {"ball": gather["ball"], "cubes": gather["cubes"],
+         "cell_spots_launches": cell_launches["gather_cubes"],
+         "entries": {"ball": {**gather["ball"],
+                              "cell_crop": cell_kernels["gather_cubes"]},
+                     "cubes": gather["cubes"],
                      "gather_blocks": gather["gather_blocks"]}},
     ]
     record.update(

@@ -1,10 +1,11 @@
 """Decoding and picking: candidate spots -> MERFISH spot tuples -> homolog
 traces, and candidate tables -> picked chromosome traces.
 
-The counterpart of ``imageanalysis3_tpu/decode`` but ``picker`` (the
-h5py/pandas front door): ``merfish`` (pair search, greedy selection, tuple
+The counterpart of ``imageanalysis3_tpu/decode``: ``merfish`` (pair search, greedy selection, tuple
 completion, group QC and negative controls), ``homolog`` (BB init and E/M
-homolog assignment), ``new_decoder`` (``codebook_dataframe_to_tables``),
+homolog assignment), ``new_decoder`` (codebook tables, ``SpotDecoder``
+and ``SpotMapper`` over spot tables), ``picker`` (``SpotPicker``, the
+score-based iterative picker over decoded tables),
 ``dna_decoder`` (the per-cell front door), ``scoring`` (linear and CDF
 spot scores), ``picking`` (naive, DP and EM pickers, merging and
 assignment), ``checking`` (picked-spot screens) and
@@ -22,7 +23,9 @@ from .merfish import (Codebook, MerfishDecoder, SpotGroups,
                       generate_random_invalid_pairs, group_reference_metrics,
                       normalize_intensities_by_channel, pair_metrics,
                       select_pairs, tuple_self_scores)
-from .new_decoder import codebook_dataframe_to_tables
+from .new_decoder import (SpotDecoder, SpotMapper,
+                          codebook_dataframe_to_tables)
+from .picker import SpotPicker, batch_pick_spots
 from .picking import (EMPickResult, assign_spots_to_chromosomes,
                       build_candidate_table, dynamic_pick_spots,
                       em_pick_spots, em_pick_spots_exclusive,
@@ -51,7 +54,8 @@ __all__ = [
     "assign_groups_to_homologs", "decode_chromosome_homologs",
     "init_homolog_centers", "Codebook", "MerfishDecoder", "SpotGroups",
     "build_codebook", "complete_tuples", "find_neighbors", "select_pairs",
-    "codebook_dataframe_to_tables",
+    "codebook_dataframe_to_tables", "SpotDecoder", "SpotMapper",
+    "SpotPicker", "batch_pick_spots",
     "find_seeding_groups", "find_unused_spots", "collect_invalid_pairs",
     "generate_random_invalid_pairs", "group_reference_metrics",
     "pair_metrics", "tuple_self_scores", "normalize_intensities_by_channel",

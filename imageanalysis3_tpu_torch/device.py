@@ -29,3 +29,11 @@ def as_tensor(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def host_array(x) -> np.ndarray:
+    """`x` on the host as NumPy: a tensor copied back from its device,
+    anything else through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

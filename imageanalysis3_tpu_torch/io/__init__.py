@@ -1,6 +1,7 @@
 """Host-side I/O: .dax movies (NumPy on the host, a native fused loader),
 experiment metadata, the per-FOV result store (h5py or NumPy files),
-crops, microscope geometry and correction profiles."""
+spot tables (column mappings, saved as h5py or NumPy files), crops,
+microscope geometry and correction profiles."""
 
 from .color_usage import (ColorUsage, find_hyb_folders, load_chip_data,
                           load_color_usage, load_encoding_scheme,
@@ -20,6 +21,9 @@ from .microscope import (load_position_file, microscope_correct_image,
 from .native_loader import (load_dax_channels, native_loader_available,
                             split_channels_native)
 from .profiles_io import load_correction_profile, save_correction_profile
+from .spots import (PIXEL_COLUMNS, SPOT3D_COLUMNS, load_table_hdf5,
+                    save_table_hdf5, spot_groups_to_table, spots_to_table,
+                    table_to_cand_spots, table_to_spot_groups)
 from .store import (FLAG_CORRECTED, FLAG_EMPTY, FLAG_RAW, AsyncFovWriter,
                     FovStore, store_backend)
 
@@ -41,4 +45,7 @@ __all__ = [
     "load_correction_profile", "save_correction_profile",
     "read_microscope_json", "microscope_correct_image", "load_position_file",
     "microscope_translate_spots",
+    "SPOT3D_COLUMNS", "PIXEL_COLUMNS", "spots_to_table",
+    "table_to_cand_spots", "spot_groups_to_table", "table_to_spot_groups",
+    "save_table_hdf5", "load_table_hdf5",
 ]

@@ -4,6 +4,9 @@
 entries count as its launches) beside their plain PyTorch versions."""
 
 from . import gather_kernel, lm_kernel, seed_kernels
+from .cell_fitting import (fit_spots_around_centers,
+                           fit_spots_by_segmentation, fit_spots_in_crops,
+                           segmentation_bounding_boxes)
 from .corrections import (bleedthrough_unmix, correct_channel_stack,
                           deinterleave_stack, illumination_correct,
                           remove_hot_pixels, z_shift_correct)
@@ -42,6 +45,8 @@ __all__ = [
     "Seeds", "warp_image", "warp_image_drift", "warp_spot_coords",
     "fit_chromatic_constants", "trilinear_map_coordinates",
     "kernel_launches", "reset_kernel_launches",
+    "segmentation_bounding_boxes", "fit_spots_in_crops",
+    "fit_spots_by_segmentation", "fit_spots_around_centers",
 ]
 
 

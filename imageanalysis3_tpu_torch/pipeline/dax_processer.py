@@ -5,9 +5,10 @@ Behavior target: reference classes/preprocess.py:337-1256 (DaxProcesser):
 a per-movie object exposing stepwise corrections -- `_load_image`,
 `_corr_bleedthrough`, `_corr_hot_pixels_3D`, `_corr_Z_shift`,
 `_corr_illumination`, `_calculate_drift`, `_warp_image`,
-`_gaussian_highpass`, `_fit_spots` -- with a per-channel `correction_log`
-ledger so re-running a step is a no-op (:387, :482-487, :557-566), plus the
-static helpers `_FindDaxChannels` / `_FindImageSize` / `_LoadInfFile`.
+`_gaussian_highpass`, `_fit_spots`, `_fit_spots_by_segmentation` -- with a
+per-channel `correction_log` ledger so re-running a step is a no-op (:387,
+:482-487, :557-566), plus the static helpers `_FindDaxChannels` /
+`_FindImageSize` / `_LoadInfFile`.
 
 Where the JAX facade pulls every step's result back to the host, this one
 keeps ``ims`` as float32 tensors on its device between steps (the CUDA card
@@ -29,6 +30,7 @@ from ..io.native_loader import load_dax_channels
 from ..io.profiles_io import load_correction_profile
 from ..ops.corrections import (bleedthrough_unmix, illumination_correct,
                                remove_hot_pixels, z_shift_correct)
+from ..ops.cell_fitting import fit_spots_by_segmentation
 from ..ops.drift import align_image
 from ..ops.filters import gaussian_highpass
 from ..ops.gaussian_fit import FitResult, fit_fov_image
@@ -222,6 +224,27 @@ class DaxProcesser:
             out[ch] = fit_fov_image(self.ims[ch], **fit_kwargs)
         self.spots = out
         return out
+
+    def _fit_spots_by_segmentation(self, channel: str, seg_label,
+                                   th_seed: float = 500.0,
+                                   num_spots: Optional[int] = None,
+                                   segment_search_radius: int = 3,
+                                   **fit_kwargs
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fit spots per segmented cell (reference
+        DaxProcesser._fit_spots_by_segmentation,
+        classes/preprocess.py:1093-1152), the cells' boxes moved by
+        ``drift``.  Returns (spots, cell_ids) tensors on the processer's
+        device and stores them as `spots_<ch>` / `spots_cell_ids_<ch>`."""
+        spots, cell_ids = fit_spots_by_segmentation(
+            self.ims[channel], torch.as_tensor(seg_label,
+                                               device=self.device),
+            th_seed=th_seed, num_spots=num_spots,
+            segment_search_radius=segment_search_radius,
+            drift=self.drift, **fit_kwargs)
+        setattr(self, f"spots_{channel}", spots)
+        setattr(self, f"spots_cell_ids_{channel}", cell_ids)
+        return spots, cell_ids
 
     def _correct_spot_coords(self, spots_zxy, channel: str,
                              chromatic_constants: Optional[Dict[str,

@@ -1,6 +1,7 @@
 """PyTorch port vs JAX package: one FOV round end to end on the CPU, and the
 port's package boundary (no JAX imports, the CUDA default device)."""
 
+import ast
 import dataclasses
 import pathlib
 import re
@@ -152,15 +153,43 @@ def test_synthetic_scene_matches_jax():
     assert noisy.dtype == torch.uint16 and noisy.shape == SHAPE
 
 
+def _imports_run_at_import(tree: ast.AST, module: str):
+    """The imports of `module` that run when the file is imported: those
+    outside every function body."""
+    found = []
+
+    def visit(node, in_def):
+        for child in ast.iter_child_nodes(node):
+            if not in_def and isinstance(child, ast.Import):
+                found.extend(a.name for a in child.names
+                             if a.name.split(".")[0] == module)
+            elif not in_def and isinstance(child, ast.ImportFrom):
+                if (child.module or "").split(".")[0] == module:
+                    found.append(child.module)
+            visit(child, in_def or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+    visit(tree, False)
+    return found
+
+
 def test_port_sources_import_no_jax():
-    """No source of the port, nor chip_smoke.py, imports JAX, the JAX
-    package or pandas (the H100 machine has neither)."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|imageanalysis3_tpu"
-                     r"|pandas)(\s|\.|$)", re.M)
+    """No source of the port, nor chip_smoke.py, imports JAX or the JAX
+    package anywhere; pandas (which the H100 machine lacks, as it lacks
+    JAX) only inside the functions that build DataFrames, never when a
+    module is imported."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|imageanalysis3_tpu)"
+                     r"(\s|\.|$)", re.M)
     files = list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
     assert len(files) >= 18
     for f in files:
-        assert not pat.search(f.read_text()), f
+        src = f.read_text()
+        assert not pat.search(src), f
+        assert not _imports_run_at_import(ast.parse(src), "pandas"), f
+    # the check finds a module-level import, and one in a class body
+    assert _imports_run_at_import(ast.parse(
+        "import pandas as pd\nclass A:\n    from pandas import x\n"
+        "def f():\n    import pandas\n"), "pandas") == ["pandas", "pandas"]
 
 
 def test_port_imports_without_jax_in_subprocess():
