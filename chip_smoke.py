@@ -119,7 +119,17 @@ Phases, each of which raises (exit code != 0) on a failed check:
    at full size against its one-spot-at-a-time version; 8 planted cells of
    chromosomes 1, 2 and X through ``SpotMapper``, ``SpotPicker`` (recovery
    >= 0.9 per homolog, 2 cells equal to the CPU's), ``batch_pick_spots`` on
-   a .npy decoded file, ``load_picked`` and ``interpolate_chr``.
+   a .npy decoded file, ``load_picked`` and ``interpolate_chr``;
+11. polymer post-analysis and the rest of ops/ (_analysis_phase): a
+   population of 2048 chromosomes x 300 regions of planted domain globules
+   through the compartment, domain, bootstrap and interaction functions; a
+   genome-wide scene of chromosomes 1-22 and X (~1000 loci, 500 cells)
+   through the summaries, the matrix, the interaction groups (planted
+   3-chromosome hubs) and the density clouds; phase 10's nuclei through
+   the cell-location tables; slice 1's bench stack through
+   ``fit_matched_centers`` and the legacy fit adapters (seed_classify,
+   lm_fit and gather_cubes counted per entry); each against the port's CPU
+   run on a subset.
 
 The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
@@ -136,7 +146,8 @@ the four kernels of phase 7 and runs that phase alone; ``--only
 experiment`` builds the three kernels of phase 8 and runs that phase alone;
 ``--only picking`` runs phase 9 alone (no kernel; its self-scores then run
 on planted groups); ``--only cell_spots`` builds the per-cell path's three
-kernels and runs phase 10 alone.
+kernels and runs phase 10 alone; ``--only analysis`` builds seed_classify,
+lm_fit and gather_cubes and runs phase 11 alone.
 """
 
 from __future__ import annotations
@@ -1452,7 +1463,6 @@ def _lm_fit_shapes(torch, corrected, truth_centers, peaks, smi: str) -> dict:
     the checks of _check_lm on every input, kernel and plain CUDA-event
     medians, the bound."""
     from imageanalysis3_tpu_torch import synthetic as syn
-    from imageanalysis3_tpu_torch.ops import lm_kernel
 
     dev = corrected[0].device
     bench = [(im, *_planted_seeds(torch, truth_centers, 2048, dev))
@@ -1482,44 +1492,56 @@ def _lm_fit_shapes(torch, corrected, truth_centers, peaks, smi: str) -> dict:
              ("r4", bench, 4, 8, False), ("r6", bench, 6, 8, False)]
     out = {}
     for name, sets, radius, iters, refit in cases:
-        r0s = [_lm_round0(torch, im, s, v, radius, iters)
-               for im, s, v in sets]
-        shape = tuple(sets[0][0].shape)
-        batches = {name: ([r["lm_in"] for r in r0s],
-                          [(r["svalid"], r["base"]) for r in r0s])}
-        if refit:
-            ref_in, ref_ok = [], []
-            for r in r0s:
-                pp, ep = lm_kernel.lm_fit_plain(*r["lm_in"])
-                lm_in, sel = _lm_refit(torch, r, pp, ep)
-                ref_in.append(lm_in)
-                ref_ok.append((r["svalid"][sel], r["base"][sel]))
-            batches[name.replace("round 0", "refit")] = (ref_in, ref_ok)
-        for label, (inputs, oks) in batches.items():
-            err, n_valid, decided = 0.0, [], []
-            for lm_in, (sv, base) in zip(inputs, oks):
-                e, nv, _, dec = _check_lm(torch, label, lm_in, sv, base,
-                                          shape)
-                err, n_valid = max(err, e), n_valid + [nv]
-                decided.append(dec)
-            ms = _events_ms(torch, lm_kernel.lm_fit_cuda, inputs,
-                            queue_ahead=True)
-            plain_ms = _events_ms(torch, lm_kernel.lm_fit_plain, inputs,
-                                  queue_ahead=False)
-            n, p = inputs[0][0].shape
-            it = inputs[0][8]
-            bound = _lm_bound(n, p, it, peaks)
-            out[label] = {"spots": n, "px": p, "iters": it,
-                          "n_valid": n_valid, "order_decided": decided,
-                          "max_abs_err": err, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bound[0],
-                          "bound_by": bound[1]}
-            print(f"lm_fit {label}: PASS  {n} spots x {p} px x {it} iters, "
-                  f"valid {n_valid}, decided by the summation order "
-                  f"{decided}, max |dcentre| {err:.3g} px; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x)"
-                  f"  [{smi}]")
+        out.update(_lm_time_case(torch, name, sets, radius, iters, refit,
+                                 peaks, smi))
+    return out
+
+
+def _lm_time_case(torch, name, sets, radius, iters, refit, peaks,
+                  smi: str) -> dict:
+    """lm_fit against its plain version and timed at one launch shape (and
+    its Jacobi refit's when `refit`): `sets` are (stack, seeds, valid)
+    inputs, each gathered and masked as iter_fit_seed_points' round 0
+    does; the checks of _check_lm on every input, kernel and plain
+    CUDA-event medians, the bound."""
+    from imageanalysis3_tpu_torch.ops import lm_kernel
+
+    r0s = [_lm_round0(torch, im, s, v, radius, iters) for im, s, v in sets]
+    shape = tuple(sets[0][0].shape)
+    batches = {name: ([r["lm_in"] for r in r0s],
+                      [(r["svalid"], r["base"]) for r in r0s])}
+    if refit:
+        ref_in, ref_ok = [], []
+        for r in r0s:
+            pp, ep = lm_kernel.lm_fit_plain(*r["lm_in"])
+            lm_in, sel = _lm_refit(torch, r, pp, ep)
+            ref_in.append(lm_in)
+            ref_ok.append((r["svalid"][sel], r["base"][sel]))
+        batches[name.replace("round 0", "refit")] = (ref_in, ref_ok)
+    out = {}
+    for label, (inputs, oks) in batches.items():
+        err, n_valid, decided = 0.0, [], []
+        for lm_in, (sv, base) in zip(inputs, oks):
+            e, nv, _, dec = _check_lm(torch, label, lm_in, sv, base, shape)
+            err, n_valid = max(err, e), n_valid + [nv]
+            decided.append(dec)
+        ms = _events_ms(torch, lm_kernel.lm_fit_cuda, inputs,
+                        queue_ahead=True)
+        plain_ms = _events_ms(torch, lm_kernel.lm_fit_plain, inputs,
+                              queue_ahead=False)
+        n, p = inputs[0][0].shape
+        it = inputs[0][8]
+        bound = _lm_bound(n, p, it, peaks)
+        out[label] = {"spots": n, "px": p, "iters": it,
+                      "n_valid": n_valid, "order_decided": decided,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"lm_fit {label}: PASS  {n} spots x {p} px x {it} iters, "
+              f"valid {n_valid}, decided by the summation order "
+              f"{decided}, max |dcentre| {err:.3g} px; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x)"
+              f"  [{smi}]")
     return out
 
 
@@ -2864,8 +2886,8 @@ def _picking_phase(torch, smi: str, decoded=None) -> dict:
     map of a 256-trace subset within 1e-3 relative of NumPy's float64
     ``nanmedian``; finite self-scores on every scored group.  Timed on the
     host clock around ``torch.cuda.synchronize()``; peak device memory."""
-    from imageanalysis3_tpu_torch.analysis import (contact_map,
-                                                   median_distance_map)
+    from imageanalysis3_tpu_torch.analysis.distmap import (
+        contact_map, median_distance_map)
     from imageanalysis3_tpu_torch.decode import (
         check_picked_spots, collect_invalid_pairs,
         em_pick_spots_exclusive, em_pick_spots_for_chromosomes,
@@ -3062,6 +3084,29 @@ def _ellipsoid_value(p, centre, semi=CELL_SEMI):
     return (((np.asarray(p) - centre) / np.asarray(semi)) ** 2).sum(-1)
 
 
+def _nucleus_box(centre, shape):
+    """The (lo, hi) voxel box that holds one planted nucleus."""
+    lo = np.maximum(np.floor(centre - CELL_SEMI).astype(int), 0)
+    hi = np.minimum(np.ceil(centre + CELL_SEMI).astype(int) + 1, shape)
+    return lo, hi
+
+
+def _nuclei_labels(torch, shape, dev):
+    """The int32 label volume on `dev` of the grid of ellipsoidal nuclei."""
+    labels = torch.zeros(shape, dtype=torch.int32, device=dev)
+    zz = torch.arange(shape[0], device=dev, dtype=torch.float64)
+    for cid, c in _nucleus_centres(shape):
+        lo, hi = _nucleus_box(c, shape)
+        xs = torch.arange(lo[1], hi[1], device=dev, dtype=torch.float64)
+        ys = torch.arange(lo[2], hi[2], device=dev, dtype=torch.float64)
+        v = (((zz[lo[0]:hi[0], None, None] - c[0]) / CELL_SEMI[0]) ** 2
+             + ((xs[None, :, None] - c[1]) / CELL_SEMI[1]) ** 2
+             + ((ys[None, None, :] - c[2]) / CELL_SEMI[2]) ** 2)
+        box = labels[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        box[v <= 1.0] = cid
+    return labels
+
+
 def _nuclei_scene(torch, rng, shape, dev):
     """Phase 10's scene: the label volume (int32 on `dev`) of a grid of
     ellipsoidal nuclei, CELL_DIM dim spots inside each (at most 0.75 of
@@ -3072,18 +3117,7 @@ def _nuclei_scene(torch, rng, shape, dev):
     from imageanalysis3_tpu_torch import synthetic as syn
 
     nuclei = _nucleus_centres(shape)
-    labels = torch.zeros(shape, dtype=torch.int32, device=dev)
-    zz = torch.arange(shape[0], device=dev, dtype=torch.float64)
-    for cid, c in nuclei:
-        lo = np.maximum(np.floor(c - CELL_SEMI).astype(int), 0)
-        hi = np.minimum(np.ceil(c + CELL_SEMI).astype(int) + 1, shape)
-        xs = torch.arange(lo[1], hi[1], device=dev, dtype=torch.float64)
-        ys = torch.arange(lo[2], hi[2], device=dev, dtype=torch.float64)
-        v = (((zz[lo[0]:hi[0], None, None] - c[0]) / CELL_SEMI[0]) ** 2
-             + ((xs[None, :, None] - c[1]) / CELL_SEMI[1]) ** 2
-             + ((ys[None, None, :] - c[2]) / CELL_SEMI[2]) ** 2)
-        box = labels[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
-        box[v <= 1.0] = cid
+    labels = _nuclei_labels(torch, shape, dev)
     dim = {}
     for cid, c in nuclei:
         pts = []
@@ -3745,6 +3779,790 @@ def _cell_spots_phase(torch, smi: str, peaks) -> dict:
     return rec
 
 
+#: phase 11's scenes: a population of planted domain traces at phase 9's
+#: width, a genome-wide DNA-MERFISH scene, phase 10's nuclei labels and
+#: slice 1's bench stack
+AN_CHROMS = 2048                   # phase 9's population width
+AN_REGIONS = 300
+#: chromosomes through the per-chromosome callers: cut from 256 to fit
+#: the phase's 45 s (their host loops of small launches take 0.24-0.33 s
+#: a chromosome on an H100)
+AN_CALL_CHROMS = 48
+AN_CPU_CHROMS = 16                 # ... held against the CPU's
+AN_SCORE_CPU = 4                   # compartment scores against the CPU
+AN_BOOT_CPU = 64                   # bootstrap hits against the CPU
+AN_BOOT_ITER = 100
+AN_GRID = 30                       # compartment_scores' grid radius
+AN_WINDOW = 5                      # the batched sliding window
+#: genome-wide scene: chromosomes 1-22 and X at ~1000 loci in all, loci in
+#: proportion to each chromosome's length (GRCh38, Mb)
+GENOME_MB = (248, 242, 198, 190, 181, 171, 159, 145, 138, 134, 135, 133,
+             114, 107, 102, 90, 83, 80, 59, 64, 47, 51, 156)
+GENOME_CHRS = tuple(str(i) for i in range(1, 23)) + ("X",)
+GENOME_LOCI = 1000
+GENOME_CELLS = 500
+GENOME_CPU_CELLS = 24              # groups against the CPU's
+GENOME_SUMMARY_CPU = (("1", "7", "X"), 50)   # chromosomes x cells
+GENOME_CLOUD_CELLS = 8
+GENOME_HUB = (("1", 20), ("7", 10), ("14", 5))   # (chr, chr_order)
+GENOME_RADIUS_UM = 5.0             # nucleus radius
+GENOME_SEARCH_UM = 0.25            # find_interaction_groups' radius
+LEGACY_PATH = ("seed_classify", "lm_fit", "gather_cubes")
+LEGACY_CROP = (slice(24, 36), slice(0, 256), slice(0, 256))
+
+
+def _domain_sizes(rng):
+    """10-15 domain sizes of 15-40 regions summing to AN_REGIONS."""
+    while True:
+        sizes = rng.integers(15, 41, 16)
+        k = int(np.searchsorted(np.cumsum(sizes), AN_REGIONS))
+        sizes = sizes[:k + 1].copy()
+        sizes[-1] -= int(sizes.sum()) - AN_REGIONS
+        if 10 <= len(sizes) <= 15 and 15 <= sizes[-1] <= 40:
+            return sizes
+
+
+def _domain_population(rng, n, sizes):
+    """(n, R, 3) float32 nm traces of compact domain globules (150 nm
+    spread about each domain's centre), A and B compartments alternating
+    domain by domain (A centres 120 nm about one pole, B about another
+    1500 nm away, so domains of one compartment meet), each chromosome moved anywhere in a 10 um box, 10 % of
+    the regions NaN; the middle region of the largest domain sits at its
+    centre and is never missing -> (traces, starts, region compartment
+    (R,), that domain's region indices, its middle region, the middle
+    region of a neighbouring domain)."""
+    k = len(sizes)
+    comp = np.arange(k) % 2
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    dom_of = np.repeat(np.arange(k), sizes)
+    poles = np.array([[0.0, 0.0, 0.0], [1500.0, 0.0, 0.0]])
+    centres = poles[comp][None] + rng.normal(0, 120.0, (n, k, 3))
+    z = centres[:, dom_of] + rng.normal(0, 150.0, (n, AN_REGIONS, 3))
+    big = int(np.argmax(sizes))
+    dom = np.arange(starts[big], starts[big] + sizes[big])
+    mid = int(dom[len(dom) // 2])
+    z[:, mid] = centres[:, big]
+    near = big + 1 if big + 1 < k else big - 1
+    out = int(starts[near] + sizes[near] // 2)
+    z += rng.uniform(0, 10000.0, (n, 1, 3))
+    missing = rng.uniform(size=(n, AN_REGIONS)) < 0.1
+    missing[:, mid] = False
+    z[missing] = np.nan
+    return z.astype(np.float32), starts, comp[dom_of], dom, mid, out
+
+
+def _boundary_recall(called, starts) -> float:
+    """Share of the planted boundaries (starts but 0) with a called start
+    within 2 regions."""
+    called = np.asarray(called)
+    return float(np.mean([np.abs(called - b).min() <= 2 for b in starts[1:]]))
+
+
+def _genome_codebook():
+    """Column codebook of GENOME_LOCI loci over GENOME_CHRS -> (codebook,
+    loci per chromosome)."""
+    mb = np.asarray(GENOME_MB, float)
+    n = np.maximum(5, np.round(GENOME_LOCI * mb / mb.sum())).astype(int)
+    chrs = np.concatenate([[c] * k for c, k in zip(GENOME_CHRS, n)])
+    return ({"id": np.arange(len(chrs)), "chr": chrs.astype("U2"),
+             "chr_order": np.concatenate([np.arange(k) for k in n])},
+            dict(zip(GENOME_CHRS, (int(k) for k in n))))
+
+
+def _genome_cells(rng, n_cells, sizes):
+    """Per-cell dicts chr -> (H, R_chr, 3) um traces (2 homologs, X one):
+    each homolog a random walk of 0.8 um steps about a territory centre
+    inside a GENOME_RADIUS_UM nucleus, 10 % of loci NaN; every other cell
+    carries a hub of GENOME_HUB's three loci (homolog 0) within 0.03 um of
+    one point -> (cells, the cells carrying a hub)."""
+    cells = []
+    for k in range(n_cells):
+        cell = {}
+        for c in GENOME_CHRS:
+            h = 1 if c == "X" else 2
+            v = rng.normal(size=(h, 3))
+            v /= np.linalg.norm(v, axis=1, keepdims=True)
+            centre = v * 0.6 * GENOME_RADIUS_UM \
+                * rng.uniform(size=(h, 1)) ** (1 / 3)
+            tr = np.cumsum(rng.normal(0, 0.8 / np.sqrt(3),
+                                      (h, sizes[c], 3)), 1)
+            tr += centre[:, None] - tr.mean(1, keepdims=True)
+            tr[rng.uniform(size=tr.shape[:2]) < 0.1] = np.nan
+            cell[c] = tr.astype(np.float32)
+        if k % 2 == 0:
+            hub = rng.uniform(-2.0, 2.0, 3)
+            for c, o in GENOME_HUB:
+                cell[c][0, o] = hub + rng.normal(0, 0.03, 3)
+        cells.append(cell)
+    return cells, np.arange(0, n_cells, 2)
+
+
+def _cell_table_numpy(labels: np.ndarray, shape) -> dict:
+    """The cell-location table of the planted nuclei by NumPy on the host:
+    each nucleus' voxel counts per plane, row and column of its planted
+    box give its volume, its coordinate sums (exact integers) and its
+    bounds; the boxes together must hold every labelled voxel of the
+    volume (so none lies outside its nucleus' box)."""
+    size = np.asarray(shape, float)
+    px_um = np.asarray([200.0, 108.0, 108.0]) / 1000.0
+    rows = []
+    for cid, c in _nucleus_centres(shape):
+        lo, hi = _nucleus_box(c, shape)
+        mask = labels[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] == cid
+        n = int(mask.sum())
+        sums, mins, maxs = [], [], []
+        for ax in range(3):
+            per = mask.sum(axis=tuple(a for a in range(3) if a != ax))
+            at = np.arange(lo[ax], hi[ax])
+            hit = at[per > 0]
+            sums.append(float((per * at).sum()))
+            mins.append(float(hit.min()))
+            maxs.append(float(hit.max()))
+        rows.append((cid, n, (np.asarray(sums) / n - size / 2) * px_um,
+                     (np.asarray(mins) - size / 2) * px_um,
+                     (np.asarray(maxs) + 1 - size / 2) * px_um))
+    if sum(r[1] for r in rows) != np.count_nonzero(labels):
+        raise AssertionError("cell locations: labelled voxels outside the "
+                             "planted nuclei's boxes")
+    out = {"cell_id": np.asarray([r[0] for r in rows]),
+           "volume": np.asarray([r[1] for r in rows])}
+    for name, k in (("center", 2), ("min", 3), ("max", 4)):
+        for i, a in enumerate("zxy"):
+            out[f"{name}_{a}"] = np.asarray([r[k][i] for r in rows])
+    return out
+
+
+def _bootstrap_hits(torch, dm, spots, subsets, tol=1e-3, fw_iters=64):
+    """Every bootstrap sample's hull distance as
+    ``postanalysis.bootstrap_probs`` forms it, a lower bound of the true
+    distance certified by the Frank-Wolfe gap at the last iterate (f(w) -
+    f* <= gap for f = |x - p|^2 / 2, in float64), and the cut -> ((C, S)
+    distances, (C, S) lower bounds, (C,) cuts).  A sample whose cut lies
+    between its bound and its distance is undecided after `fw_iters`
+    iterations: a device's rounding can put it on either side."""
+    from imageanalysis3_tpu_torch.analysis import postanalysis as pa
+
+    base = (~torch.isnan(dm).any(-1) & ~(dm == spots[:, None]).all(-1))
+    pts = torch.nan_to_num(dm)
+    d = pts - spots[:, None]
+    radius = torch.where(base, torch.sqrt(d[..., 0] * d[..., 0]
+                                          + d[..., 1] * d[..., 1]
+                                          + d[..., 2] * d[..., 2]), 0.0)
+    cut = tol * radius.amax(dim=1).clamp_min(1.0)
+    chosen = torch.zeros(subsets.shape[:2] + (dm.shape[1],),
+                         dtype=torch.bool, device=dm.device)
+    chosen.scatter_(-1, subsets, True)
+    valid = chosen & base[:, None]
+    masked = torch.where(valid[..., None], pts[:, None], 0.0)
+    p = spots[:, None].expand(-1, subsets.shape[1], -1)
+    dist = pa._hull_distance(masked, valid, p, fw_iters)
+    x = pa._frank_wolfe(masked, valid, p, fw_iters)
+    r = (x - p).double()
+    rel = masked.double() - p.double()[..., None, :]
+    g = (rel @ r[..., :, None])[..., 0]
+    gap = (r * r).sum(-1) - torch.where(valid, g, float("inf")).amin(-1)
+    lo = torch.sqrt(((r * r).sum(-1) - 2.0 * gap).clamp_min(0.0))
+    return dist, lo.float(), cut
+
+
+def _analysis_population(torch, dev, timed, smi: str) -> dict:
+    """Phase 11 (a): population, domains and compartments (see
+    _analysis_phase)."""
+    from imageanalysis3_tpu_torch import analysis as an
+    from imageanalysis3_tpu_torch.analysis import (compartments, distmap,
+                                                   domains, postanalysis)
+
+    rng = np.random.default_rng(43)
+    sizes = _domain_sizes(rng)
+    z, starts, comp, dom, mid, out_region = _domain_population(
+        rng, AN_CHROMS, sizes)
+    rec = {"domains": len(sizes), "sizes": sizes.tolist()}
+    zt = torch.as_tensor(z, device=dev)
+    valid = torch.isfinite(zt).all(dim=-1)
+
+    # population maps and the A/B eigenscore
+    med = timed("median_distance_map",
+                lambda: distmap.median_distance_map(zt))
+    ev = timed("ab_compartment_eigenscore",
+               lambda: an.ab_compartment_eigenscore(med)).cpu().numpy()
+    ok = np.isfinite(ev)
+    agree = float(np.mean((ev[ok] > 0) == (comp[ok] == 0)))
+    rec["eigenscore_sign_agreement"] = max(agree, 1 - agree)
+    ev_cpu = an.ab_compartment_eigenscore(med.cpu(), device="cpu").numpy()
+    rec["eigenscore_signs_differ_from_cpu"] = int(
+        (np.sign(ev_cpu[ok]) != np.sign(ev[ok])).sum())
+    if rec["eigenscore_sign_agreement"] < 0.9:
+        raise AssertionError(f"analysis (a): eigenscore signs match the "
+                             f"planted A/B on {rec['eigenscore_sign_agreement']}"
+                             f" of the regions")
+
+    # the batched boundary signal
+    dms = distmap.distance_map(zt)
+    sw = timed("sliding_window_dist", lambda: an.sliding_window_dist(
+        dms, AN_WINDOW, valid=valid))
+    cpu_sw = an.sliding_window_dist(dms[:AN_SCORE_CPU].cpu(), AN_WINDOW,
+                                    valid=valid[:AN_SCORE_CPU].cpu(),
+                                    device="cpu")
+    rec["sliding_window_max_abs_err"] = float(
+        (sw[:AN_SCORE_CPU].cpu() - cpu_sw).abs().max())
+    if not torch.allclose(sw[:AN_SCORE_CPU].cpu(), cpu_sw, rtol=1e-4,
+                          atol=1e-5):
+        raise AssertionError(f"analysis (a): the batched sliding window "
+                             f"differs from the CPU's by "
+                             f"{rec['sliding_window_max_abs_err']}")
+    del dms
+
+    # compartment scores on the normalised clouds (1 grid unit = 100 nm)
+    a_mask = torch.as_tensor(comp == 0, device=dev)
+    norm = timed("normalize_center_spots",
+                 lambda: compartments.normalize_center_spots(
+                     zt, valid, True, 0.01))
+    scores = timed("compartment_scores", lambda: an.compartment_scores(
+        norm, valid, a_mask, ~a_mask, grid_radius=AN_GRID))
+    sc = scores.cpu().numpy()
+    rec["mean_score_a"] = float(np.nanmean(sc[:, comp == 0]))
+    rec["mean_score_b"] = float(np.nanmean(sc[:, comp == 1]))
+    if not rec["mean_score_a"] > rec["mean_score_b"]:
+        raise AssertionError(f"analysis (a): compartment scores A "
+                             f"{rec['mean_score_a']} <= B "
+                             f"{rec['mean_score_b']}")
+    k = AN_SCORE_CPU
+    norm_cpu = compartments.normalize_center_spots(
+        zt[:k].cpu(), valid[:k].cpu(), True, 0.01, device="cpu")
+    nc = norm[:k].cpu()
+    sign = torch.sign(torch.nansum(norm_cpu * nc, dim=-2, keepdim=True))
+    rec["normalize_max_abs_err"] = float(torch.nan_to_num(
+        (nc * sign - norm_cpu).abs()).max())
+    sc_cpu = an.compartment_scores(nc, valid[:k].cpu(), a_mask.cpu(),
+                                   ~a_mask.cpu(), grid_radius=AN_GRID,
+                                   device="cpu").numpy()
+    rec["scores_max_abs_err"] = float(np.nanmax(np.abs(sc[:k] - sc_cpu)))
+    if (not torch.allclose(nc * sign, norm_cpu, rtol=1e-4, atol=1e-4,
+                           equal_nan=True)
+            or not np.allclose(sc[:k], sc_cpu, rtol=1e-4, atol=1e-5,
+                               equal_nan=True)):
+        raise AssertionError(f"analysis (a): normalised clouds or scores "
+                             f"differ from the CPU's: {rec}")
+    del norm, scores
+
+    # bootstrap enclosure of a region at its domain's centre and of one in
+    # the next domain, over all chromosomes
+    n_dom = len(dom)
+    k_sub = postanalysis._sampling_size(n_dom, 0.5)
+    subsets = postanalysis.draw_bootstrap_subsets(
+        AN_CHROMS, AN_BOOT_ITER, n_dom, k_sub, seed=43).to(dev)
+    pts = zt[:, torch.as_tensor(dom, device=dev)]
+    p_in = timed("bootstrap", lambda: postanalysis.bootstrap_probs(
+        pts, zt[:, mid], subsets))
+    p_out = timed("bootstrap", lambda: postanalysis.bootstrap_probs(
+        pts, zt[:, out_region], subsets))
+    wrapped = an.bootstrap_regions_in_domain(
+        zt, mid, dom, p_bootstrap=0.5, n_iter=AN_BOOT_ITER, seed=43)
+    rec["bootstrap"] = {"domain_size": n_dom, "sampling_size": k_sub,
+                        "inside": float(torch.nanmean(p_in)),
+                        "outside": float(torch.nanmean(p_out)),
+                        "wrapper_equal": bool(torch.equal(
+                            torch.nan_to_num(wrapped, -1.0),
+                            torch.nan_to_num(p_in, -1.0)))}
+    undecided, flips = 0, 0
+    for spot_region in (mid, out_region):
+        sl = slice(0, AN_BOOT_CPU)
+        args = (pts[sl], zt[sl, spot_region], subsets[sl])
+        d_card, lo_card, cut = _bootstrap_hits(torch, *args)
+        d_cpu, lo_cpu, cut_cpu = _bootstrap_hits(torch,
+                                                 *(a.cpu() for a in args))
+        rate = (d_card < cut[:, None]).to(torch.float32).mean(1).cpu()
+        d_card, lo_card, cut = d_card.cpu(), lo_card.cpu(), cut.cpu()
+        hit_card = d_card < cut[:, None]
+        hit_cpu = d_cpu < cut_cpu[:, None]
+        open_card = (lo_card <= cut[:, None]) & ~hit_card
+        open_cpu = (lo_cpu <= cut_cpu[:, None]) & ~hit_cpu
+        differ = hit_card != hit_cpu
+        undecided += int((open_card | open_cpu).sum())
+        flips += int(differ.sum())
+        if (differ & ~(open_card | open_cpu)).any():
+            bad = differ & ~(open_card | open_cpu)
+            raise AssertionError(
+                f"analysis (a): bootstrap hits differ from the CPU's where "
+                f"both are decided: card {d_card[bad][:8]} (bound "
+                f"{lo_card[bad][:8]}), CPU {d_cpu[bad][:8]} (bound "
+                f"{lo_cpu[bad][:8]}), cut {cut[:, None].expand_as(bad)[bad][:8]}")
+        probs = postanalysis.bootstrap_probs(*args).cpu()
+        ok_spot = ~torch.isnan(probs)
+        if not torch.equal(probs[ok_spot], rate[ok_spot]):
+            raise AssertionError("analysis (a): bootstrap_probs is not its "
+                                 "samples' hit rate")
+    rec["bootstrap"]["undecided_samples"] = undecided
+    rec["bootstrap"]["hits_differing_from_cpu"] = flips
+    if not (rec["bootstrap"]["inside"] >= 0.8
+            and rec["bootstrap"]["outside"] <= 0.2
+            and rec["bootstrap"]["wrapper_equal"]):
+        raise AssertionError(f"analysis (a): bootstrap {rec['bootstrap']}")
+
+    # the per-chromosome callers
+    print(f"analysis (a): per-chromosome callers on {AN_CALL_CHROMS} of "
+          f"{AN_CHROMS} chromosomes (cut from 256 to fit the phase's "
+          f"budget), {AN_CPU_CHROMS} against the CPU")
+    callers = {
+        "basic": lambda t: an.basic_domain_calling(t),
+        "iterative": lambda t: an.iterative_domain_calling(t),
+        "insulation": lambda t: an.insulation_domain_calling(
+            distmap.distance_map(t)),
+        "sliding_window": lambda t: an.sliding_window_domain_calling(t),
+        "interdomain": lambda t: an.iterative_interdomain_calling(
+            distmap.distance_map(t), starts)}
+    called = {name: [] for name in callers}
+    for c in range(AN_CALL_CHROMS):
+        for name, fn in callers.items():
+            called[name].append(timed(name, lambda: fn(zt[c])))
+    recall = {name: float(np.median([_boundary_recall(s, starts)
+                                     for s in called[name]]))
+              for name in callers if name != "interdomain"}
+    rec["median_boundary_recall"] = recall
+    dom_comp = comp[starts]
+    pairs_all = [p for ps in called["interdomain"] for p in ps]
+    rec["interdomain_pairs_per_chromosome"] = len(pairs_all) / AN_CALL_CHROMS
+    rec["interdomain_same_compartment"] = float(np.mean(
+        [dom_comp[a] == dom_comp[b] for a, b in pairs_all])) \
+        if pairs_all else float("nan")
+    rec["callers_chromosomes"] = AN_CALL_CHROMS
+    differ = []
+    zc = zt[:AN_CPU_CHROMS].cpu()
+    for c in range(AN_CPU_CHROMS):
+        for name, fn in callers.items():
+            cpu = fn(zc[c])
+            if name == "interdomain":
+                if cpu != called[name][c]:
+                    print(f"analysis (a): chromosome {c} interdomain pairs "
+                          f"differ: card {called[name][c]}, CPU {cpu}")
+                    differ.append(c)
+                continue
+            if not np.array_equal(cpu, called[name][c]):
+                metric, w = (("insulation", 2 * AN_WINDOW)
+                             if name == "insulation" else ("median",
+                                                           AN_WINDOW))
+                sig = [domains.sliding_window_dist(
+                    distmap.distance_map(t), w, metric,
+                    valid=None if name == "insulation"
+                    else torch.isfinite(t).all(-1)) for t in (zt[c], zc[c])]
+                at = np.setxor1d(cpu, called[name][c])
+                gap = (sig[0].cpu() - sig[1]).abs().max()
+                print(f"analysis (a): chromosome {c} {name} starts differ: "
+                      f"card {called[name][c].tolist()}, CPU {cpu.tolist()};"
+                      f" signal at {at.tolist()} card "
+                      f"{sig[0].cpu()[at].tolist()} CPU "
+                      f"{sig[1][at].tolist()}, max |card - CPU| {gap:.3g}")
+                differ.append(c)
+    rec["chromosomes_differing_from_cpu"] = sorted(set(differ))
+    if recall["basic"] < 0.8 or recall["iterative"] < 0.8:
+        raise AssertionError(f"analysis (a): boundary recall {recall}")
+    if len(set(differ)) > 1:
+        raise AssertionError(f"analysis (a): {len(set(differ))} of "
+                             f"{AN_CPU_CHROMS} chromosomes' starts differ "
+                             f"from the CPU's")
+
+    # interactions and loop-outs on the median map
+    pairs = timed("iterative_interdomain_calling",
+                  lambda: an.iterative_interdomain_calling(med, starts))
+    loops = timed("loop_out_scores", lambda: an.loop_out_scores(med, starts))
+    calls = timed("call_loop_outs", lambda: an.call_loop_outs(med, starts))
+    med_cpu = med.cpu()
+    pairs_cpu = an.iterative_interdomain_calling(med_cpu, starts,
+                                                 device="cpu")
+    loops_cpu = an.loop_out_scores(med_cpu, starts, device="cpu")
+    calls_cpu = an.call_loop_outs(med_cpu, starts, device="cpu")
+    rec["median_map_interdomain_pairs"] = pairs
+    rec["median_map_loop_outs"] = len(calls)
+    if (pairs != pairs_cpu or calls != calls_cpu
+            or not torch.allclose(loops.cpu(), loops_cpu, rtol=1e-10,
+                                  atol=1e-12, equal_nan=True)):
+        raise AssertionError(f"analysis (a): interactions or loop-outs "
+                             f"differ from the CPU's: {pairs} / {pairs_cpu}")
+    if rec["eigenscore_signs_differ_from_cpu"]:
+        raise AssertionError(f"analysis (a): eigenscore signs differ from "
+                             f"the CPU's at "
+                             f"{rec['eigenscore_signs_differ_from_cpu']} "
+                             f"regions")
+    return rec
+
+
+def _analysis_genome(torch, dev, timed, smi: str) -> dict:
+    """Phase 11 (b): genome-wide summaries, hubs and clouds (see
+    _analysis_phase)."""
+    from imageanalysis3_tpu_torch import analysis as an
+
+    rng = np.random.default_rng(44)
+    codebook, sizes = _genome_codebook()
+    cells, hub_cells = _genome_cells(rng, GENOME_CELLS, sizes)
+    rec = {"loci": len(codebook["id"]), "cells": GENOME_CELLS,
+           "hub_cells": len(hub_cells)}
+    torch.cuda.reset_peak_memory_stats()
+    summary = timed("genome_summary_dict", lambda: an.genome_summary_dict(
+        cells, codebook, device=dev))
+    matrix, edges, names = timed("assemble_dist_dict_to_matrix",
+                                 lambda: an.assemble_dist_dict_to_matrix(
+                                     summary, codebook, device=dev))
+    rec["summary_entries"] = len(summary)
+    rec["matrix_finite"] = float(torch.isfinite(matrix).float().mean())
+    if matrix.shape != (len(codebook["id"]),) * 2 or len(names) != 23:
+        raise AssertionError(f"analysis (b): matrix {tuple(matrix.shape)}, "
+                             f"{len(names)} chromosomes")
+    keep, n_cpu = GENOME_SUMMARY_CPU
+    sel = np.isin(codebook["chr"], keep)
+    sub_book = {k: v[sel] for k, v in codebook.items()}
+    sub_cells = [{c: cell[c] for c in keep} for cell in cells[:n_cpu]]
+    card = an.genome_summary_dict(sub_cells, sub_book, device=dev)
+    cpu = an.genome_summary_dict(sub_cells, sub_book, device="cpu")
+    for key in cpu:
+        if not torch.allclose(card[key].cpu(), cpu[key], rtol=1e-5,
+                              atol=1e-6, equal_nan=True):
+            raise AssertionError(f"analysis (b): summary {key} differs from "
+                                 f"the CPU's")
+    hub_ids = {int(np.nonzero((codebook["chr"] == c)
+                              & (codebook["chr_order"] == o))[0][0])
+               for c, o in GENOME_HUB}
+    found, n_groups, groups = 0, 0, []
+    for k, cell in enumerate(cells):
+        out = timed("find_interaction_groups",
+                    lambda: an.find_interaction_groups(
+                        cell, codebook, search_radius=GENOME_SEARCH_UM,
+                        device=dev))
+        n_groups += len(out[1])
+        if k < GENOME_CPU_CELLS:
+            groups.append(out)
+        if k % 2 == 0:
+            found += any(hub_ids <= set(map(int, g)) for g in out[1])
+    rec["hubs_found"] = found / len(hub_cells)
+    rec["groups_per_cell"] = n_groups / GENOME_CELLS
+    for k in range(GENOME_CPU_CELLS):
+        cpu = an.find_interaction_groups(cells[k], codebook,
+                                         search_radius=GENOME_SEARCH_UM,
+                                         device="cpu")
+        if {tuple(g) for g in cpu[1]} != {tuple(g) for g in groups[k][1]}:
+            raise AssertionError(f"analysis (b): cell {k}'s groups differ "
+                                 f"from the CPU's")
+    clouds = [timed("chr_to_density_clouds", lambda: an.chr_to_density_clouds(
+        cell, device=dev)) for cell in cells[:GENOME_CLOUD_CELLS]]
+    rec["clouds_per_cell"] = [sum(v.shape[0] for v in c.values())
+                              for c in clouds]
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del clouds, summary, matrix
+    if rec["hubs_found"] < 0.9:
+        raise AssertionError(f"analysis (b): hubs found in "
+                             f"{rec['hubs_found']} of the cells carrying one")
+    return rec
+
+
+def _analysis_cells(torch, dev, timed, smi: str) -> dict:
+    """Phase 11 (c): cell locations of phase 10's nuclei (see
+    _analysis_phase)."""
+    from imageanalysis3_tpu_torch.analysis import cell_locations as cl
+
+    labels = timed("nuclei_labels", lambda: _nuclei_labels(torch, SHAPE,
+                                                           dev))
+    table = timed("segmentation_to_cell_locations",
+                  lambda: cl.segmentation_to_cell_locations(labels,
+                                                            fov_id=0))
+    host = timed("labels_to_host", lambda: labels.cpu().numpy())
+    del labels
+    want = timed("cell_table_numpy", lambda: _cell_table_numpy(host, SHAPE))
+    for c in ("cell_id", "volume") + tuple(f"{n}_{a}" for n in ("min", "max")
+                                           for a in "zxy"):
+        if not np.array_equal(table[c], want[c]):
+            raise AssertionError(f"analysis (c): column {c} differs from "
+                                 f"NumPy's")
+    err = max(float(np.abs(table[f"center_{a}"] - want[f"center_{a}"]).max())
+              for a in "zxy")
+    if err > 1e-9:
+        raise AssertionError(f"analysis (c): centres differ by {err}")
+    # two FOVs whose grids overlap by one column of nuclei
+    pitch_um = CELL_PITCH * (CELL_GRID - 1) * 0.108
+    pos = [(0.0, 500.0, 800.0), (0.0, 500.0, 800.0 + pitch_um)]
+    fovs = [timed("translate_cell_locations",
+                  lambda: cl.translate_cell_locations(table, p))
+            for p in pos]
+    merged = timed("merge_cell_locations",
+                   lambda: cl.merge_cell_locations(fovs, device=dev))
+    n = len(table["cell_id"])
+    ids_b = merged["cell_id"][n:]
+    overlap = np.asarray([cid for cid, _ in _nucleus_centres(SHAPE)
+                          if (cid - 1) % CELL_GRID == 0])
+    rec = {"cells": n, "centre_max_abs_err": err,
+           "merged": len(merged["cell_id"]),
+           "dropped": sorted(int(c) for c in set(table["cell_id"])
+                             - set(ids_b))}
+    if rec["dropped"] != overlap.tolist() or rec["merged"] != 2 * n \
+            - len(overlap):
+        raise AssertionError(f"analysis (c): the merge dropped "
+                             f"{rec['dropped']}, want {overlap.tolist()}")
+    return rec
+
+
+def _fit_gate(torch, label, centers, truth) -> dict:
+    """bench.py's gate on fitted centres (N, 3): median error over the
+    first 500 truths matched within 1 px <= 0.02 px, n_valid >= 90 % of
+    the planted spots."""
+    got = torch.as_tensor(np.asarray(centers, np.float32))
+    errs, n_match = _matched_errors(torch, got, truth[:500])
+    med = float(np.median(errs)) if len(errs) else float("nan")
+    n_val = int(len(got))
+    if not med <= 0.02 or n_val < int(np.ceil(0.9 * len(truth))):
+        raise AssertionError(f"analysis (d) {label}: median_centroid_err_px "
+                             f"{med} over {n_match}, n_valid {n_val}")
+    return {"median_centroid_err_px": med, "matched": n_match,
+            "n_valid": n_val}
+
+
+def _rows_agree(label, card, cpu):
+    """Fitted rows of the card and the CPU at the fit tolerances of
+    tests/test_torch_fit.py: centres and widths 1e-3 px, heights rtol
+    1e-2; raises otherwise."""
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    if card.shape != cpu.shape:
+        raise AssertionError(f"analysis (d) {label}: card {card.shape} "
+                             f"against CPU {cpu.shape}")
+    if card.size == 0:
+        return 0.0
+    if card.shape[-1] == 3:
+        err = float(np.abs(card - cpu).max())
+        if err > 1e-3:
+            raise AssertionError(f"analysis (d) {label}: centres differ by "
+                                 f"{err}")
+        return err
+    err = float(np.abs(card[:, 1:4] - cpu[:, 1:4]).max())
+    ok = (err <= 1e-3
+          and np.allclose(card[:, 0], cpu[:, 0], rtol=1e-2)
+          and np.allclose(card[:, 5:8], cpu[:, 5:8], rtol=0, atol=1e-3))
+    if not ok:
+        raise AssertionError(f"analysis (d) {label}: rows differ from the "
+                             f"CPU's beyond the fit tolerances")
+    return err
+
+
+def _analysis_ops(torch, dev, timed, peaks, smi: str) -> dict:
+    """Phase 11 (d): the rest of ops/ on slice 1's bench stack (see
+    _analysis_phase)."""
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.ops import (
+        fit_matched_centers, fit_multi_gaussian, fit_seed_points_base,
+        fitsinglegaussian_fixed_width, gather_kernel, get_seed_points_base,
+        get_STD_centers, kernel_launches, reset_kernel_launches)
+
+    rng = np.random.default_rng(0)
+    truth = syn.sample_spot_params(SHAPE, N_SPOTS, rng, min_separation=8.0,
+                                   height_range=(400.0, 3000.0),
+                                   sigma_jitter=0.0)
+    centers = truth["centers"]
+    base = syn.render_spots(SHAPE, centers, truth["heights"],
+                            background=truth["background"], device=dev)
+    ims = [syn.noisy_uint16(base, seed=70 + k).to(torch.float32)
+           for k in range(2)]
+    del base
+    im = ims[0]
+    rec = {"launches": {}}
+
+    def counted(name, fn, warm=True):
+        if warm:
+            fn()                                 # untimed first call
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        out = timed(name, fn)
+        rec["launches"][name] = kernel_launches()
+        return out
+
+    pairs = counted("fit_matched_centers", lambda: fit_matched_centers(
+        im, centers, th_seed=TH_SEED, max_num_seeds=2048))
+    rec["fit_matched_centers"] = {"pairs": int(pairs.n_pairs),
+                                  "share": int(pairs.n_pairs) / len(centers)}
+    if rec["fit_matched_centers"]["share"] < 0.9:
+        raise AssertionError(f"analysis (d): fit_matched_centers matched "
+                             f"{rec['fit_matched_centers']}")
+    std = counted("get_STD_centers", lambda: get_STD_centers(
+        im, th_seed=TH_SEED, max_num_seeds=2048))
+    rec["get_STD_centers"] = _fit_gate(torch, "get_STD_centers", std,
+                                       centers)
+    seeds = timed("get_seed_points_base", lambda: get_seed_points_base(
+        im, th_seed=TH_SEED, max_num_seeds=2048))
+    rows = counted("fit_multi_gaussian", lambda: fit_multi_gaussian(
+        im, seeds.T))
+    rec["seeds"] = int(seeds.shape[1])
+    rec["fit_multi_gaussian"] = _fit_gate(torch, "fit_multi_gaussian",
+                                          rows[:, 1:4], centers)
+    s64 = seeds[:, :64]
+    base_rows = counted("fit_seed_points_base",
+                        lambda: fit_seed_points_base(im, s64))
+    singles = counted("fitsinglegaussian_fixed_width", lambda: [
+        fitsinglegaussian_fixed_width(im, s64[:, k], radius=5)[0]
+        for k in range(64)], warm=False)
+    rec["fit_seed_points_base_finite"] = bool(np.isfinite(base_rows).all())
+    rec["fitsinglegaussian_finite"] = bool(all(
+        p is not None and np.isfinite(p).all() for p in singles))
+    for name in ("fit_matched_centers", "get_STD_centers",
+                 "fit_multi_gaussian"):
+        for k in LEGACY_PATH:
+            if name == "fit_multi_gaussian" and k == "seed_classify":
+                continue
+            if rec["launches"][name][k] < 1:
+                raise AssertionError(f"analysis (d): {k} did not launch in "
+                                     f"{name}: {rec['launches'][name]}")
+    if not (rec["fit_seed_points_base_finite"]
+            and rec["fitsinglegaussian_finite"]):
+        raise AssertionError(f"analysis (d): non-finite legacy fits")
+
+    # the card against the CPU on a crop
+    crop = im[LEGACY_CROP]
+    lo = np.asarray([s.start for s in LEGACY_CROP], float)
+    hi = np.asarray([s.stop for s in LEGACY_CROP], float)
+    inside = centers[((centers >= lo) & (centers < hi)).all(1)] - lo
+    cc = crop.cpu()
+    errs = {}
+    pc = fit_matched_centers(crop, inside, th_seed=TH_SEED,
+                             max_num_seeds=256)
+    pp = fit_matched_centers(cc, inside, th_seed=TH_SEED, max_num_seeds=256,
+                             device="cpu")
+    m = pc.mask.cpu()
+    if not torch.equal(m, pp.mask):
+        raise AssertionError("analysis (d): fit_matched_centers pairs "
+                             "differ from the CPU's on the crop")
+    errs["fit_matched_centers"] = _rows_agree(
+        "fit_matched_centers", pc.tar.cpu()[m], pp.tar[m])
+    errs["get_STD_centers"] = _rows_agree(
+        "get_STD_centers", get_STD_centers(crop, th_seed=TH_SEED,
+                                           max_num_seeds=256),
+        get_STD_centers(cc, th_seed=TH_SEED, max_num_seeds=256,
+                        device="cpu"))
+    crop_seeds = get_seed_points_base(cc, th_seed=TH_SEED, device="cpu")
+    rec["crop_seeds_equal"] = bool(np.array_equal(
+        crop_seeds, get_seed_points_base(crop, th_seed=TH_SEED)))
+    errs["fit_multi_gaussian"] = _rows_agree(
+        "fit_multi_gaussian", fit_multi_gaussian(crop, crop_seeds.T),
+        fit_multi_gaussian(cc, crop_seeds.T, device="cpu"))
+    errs["fit_seed_points_base"] = _rows_agree(
+        "fit_seed_points_base", fit_seed_points_base(crop, crop_seeds[:, :16]),
+        fit_seed_points_base(cc, crop_seeds[:, :16], device="cpu"))
+    errs["fitsinglegaussian_fixed_width"] = _rows_agree(
+        "fitsinglegaussian_fixed_width",
+        fitsinglegaussian_fixed_width(crop, crop_seeds[:, 0])[0][None],
+        fitsinglegaussian_fixed_width(cc, crop_seeds[:, 0],
+                                      device="cpu")[0][None])
+    rec["crop"] = {"truth": len(inside), "seeds": int(crop_seeds.shape[1]),
+                   "max_centre_err": errs}
+
+    # kernels at launch shapes no earlier phase makes: lm_fit at 2048 seeds
+    # x 30 iterations (get_centers' default) and its refit; the ball gather
+    # at 64 seeds and at one seed of radius 10 on the full stack
+    sets = [(x, *_planted_seeds(torch, centers, 2048, dev)) for x in ims]
+    rec["lm_fit"] = _lm_time_case(torch, "legacy round 0", sets, 5, 30,
+                                  True, peaks, smi)
+    gshapes = {}
+    for label, n, radius in (("64 seeds", 64, 5), ("1 seed r10", 1, 10)):
+        seeds_n = [torch.as_tensor(np.round(centers[k * n:(k + 1) * n])
+                                   .astype(np.float32), device=dev)
+                   for k in range(3)]
+        for s in seeds_n:
+            a = gather_kernel.gather_ball_cuda(im, s, radius)
+            b = gather_kernel.gather_ball_plain(im, s, radius)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"analysis (d): gather {label} differs "
+                                     f"from its plain version")
+        ms = _events_ms(torch, lambda s: gather_kernel.gather_ball_cuda(
+            im, s, radius), [(s,) for s in seeds_n], queue_ahead=True)
+        plain = _events_ms(torch, lambda s: gather_kernel.gather_ball_plain(
+            im, s, radius), [(s,) for s in seeds_n], queue_ahead=False)
+        p = gather_kernel.ball_offsets(radius).shape[0]
+        bound = _bound(n * p * (4 + 4 + 12 + 1) + 12 * (n + p), 0.0, peaks)
+        gshapes[label] = {"ms": ms, "plain_ms": plain, "px": p,
+                          "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"gather ball {label}: PASS equal; kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound[0]:.5f} ms  [{smi}]")
+    rec["gather"] = gshapes
+    return rec
+
+
+def _analysis_phase(torch, smi: str, peaks) -> dict:
+    """Phase 11: polymer post-analysis and the rest of ops/ on the card.
+
+    (a) A population of AN_CHROMS chromosomes x AN_REGIONS regions of
+    10-15 planted domain globules (15-40 regions each), compartments A and
+    B alternating, 10 % of regions missing (_domain_population, seed 43):
+    ``median_distance_map`` -> ``ab_compartment_eigenscore`` (signs match
+    the planted A/B on >= 90 % of the valid regions), ``sliding_window_dist``
+    batched, ``normalize_center_spots`` + ``compartment_scores`` at grid
+    radius 30 (mean score on A above B; the first AN_SCORE_CPU against the
+    CPU at rtol 1e-4), ``bootstrap_probs`` / ``bootstrap_regions_in_domain``
+    (100 samples, 64 Frank-Wolfe iterations) for a region at its domain's
+    centre (>= 0.8) and one in the next domain (<= 0.2), the same subsets on
+    the CPU for AN_BOOT_CPU chromosomes giving equal hits except where the
+    cut lies within a sample's Frank-Wolfe certificate (_bootstrap_hits;
+    counted); basic, iterative, insulation and
+    sliding-window domain calling and ``iterative_interdomain_calling`` on
+    each chromosome's own map, for the first AN_CALL_CHROMS chromosomes
+    (median share of planted boundaries with a called start within 2
+    regions >= 0.8 for basic and iterative; the first AN_CPU_CHROMS equal
+    to the CPU's, at most one chromosome differing, each difference printed
+    with the boundary signal there); ``iterative_interdomain_calling``,
+    ``loop_out_scores`` and ``call_loop_outs`` on the median map, and the
+    eigenscore's signs, equal to the CPU's.  (b) A genome-wide scene
+    (_genome_codebook, _genome_cells, seed 44): ``genome_summary_dict``
+    over every chromosome pair, ``assemble_dist_dict_to_matrix``,
+    ``find_interaction_groups`` per cell (the planted hub found in >= 90 %
+    of the cells carrying one; the first GENOME_CPU_CELLS cells' groups
+    equal to the CPU's as sets), ``chr_to_density_clouds`` for
+    GENOME_CLOUD_CELLS cells; the summary of 3 chromosomes x 50 cells
+    against the CPU at rtol 1e-5; peak device memory.  (c) Phase 10's
+    nuclei label volume: ``segmentation_to_cell_locations`` equal to a
+    NumPy run (volumes and boxes exactly, centres to 1e-9), then
+    ``translate_cell_locations`` and ``merge_cell_locations`` for two FOVs
+    overlapping by one column of nuclei, which the merge drops exactly.
+    (d) Slice 1's bench stack (no vignette): ``fit_matched_centers`` (>= 90
+    % of the planted spots paired), ``get_STD_centers`` and
+    ``fit_multi_gaussian`` (on ``get_seed_points_base``'s seeds) under
+    bench.py's gate, ``fit_seed_points_base`` and
+    ``fitsinglegaussian_fixed_width`` on 64 seeds, each entry's kernel
+    launches counted from 0 (seed_classify, lm_fit and gather_cubes must
+    launch in the first three, the seeding kernel where the entry seeds);
+    the same entries on a 12x256x256 crop equal to the CPU's at the fit
+    tolerances; lm_fit and the ball gather timed at the launch shapes no
+    earlier phase makes.  Timed on the host clock around
+    ``torch.cuda.synchronize()``."""
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    secs = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    t_phase = time.perf_counter()
+    rec = {"seconds": secs}
+    steps = (("population", lambda: _analysis_population(torch, dev, timed,
+                                                         smi)),
+             ("genome", lambda: _analysis_genome(torch, dev, timed, smi)),
+             ("cells", lambda: _analysis_cells(torch, dev, timed, smi)),
+             ("ops", lambda: _analysis_ops(torch, dev, timed, peaks, smi)))
+    for name, step in steps:
+        t0 = time.perf_counter()
+        rec[name] = step()
+        rec[name]["step_seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"analysis ({name}): {rec[name]['step_seconds']:.1f} s with "
+              f"its CPU references; "
+              f"{ {k: v for k, v in rec[name].items() if k != 'lm_fit'} }"
+              f"  [{smi}]")
+    rec["launches"] = {
+        k: sum(v[k] for v in rec["ops"]["launches"].values())
+        for k in LEGACY_PATH}
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"analysis: phase {rec['phase_seconds']:.1f} s; seconds "
+          f"{ {k: round(v, 4) for k, v in secs.items()} }; kernel launches "
+          f"{rec['launches']}  [{smi}]")
+    return rec
+
+
 def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
     """One main-path round under torch.profiler: device time by kernel and
     the device's busy share of the round's wall time."""
@@ -3784,7 +4602,7 @@ def main(argv=None) -> int:
                                        "lm_fit", "dual_blur", "level_stencil",
                                        "gather_cubes", "gather_blocks",
                                        "dax_path", "experiment", "picking",
-                                       "cell_spots"],
+                                       "cell_spots", "analysis"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
@@ -3793,7 +4611,8 @@ def main(argv=None) -> int:
                          "kernels and runs that phase alone, experiment "
                          "the experiment driver's, picking phase 9 (no "
                          "kernel), cell_spots the per-cell path's three "
-                         "kernels and phase 10")
+                         "kernels and phase 10, analysis phase 11's three "
+                         "kernels and phase 11")
     args = ap.parse_args(argv)
 
     import torch
@@ -3829,7 +4648,7 @@ def main(argv=None) -> int:
     print(f"peaks used for bounds: {peaks[2]}")
     only = {"gather_blocks": ["gather_cubes"], "dax_path": list(DAX_PATH),
             "experiment": list(PYRAMID_PATH), "picking": [],
-            "cell_spots": list(CELL_PATH),
+            "cell_spots": list(CELL_PATH), "analysis": list(LEGACY_PATH),
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -3850,6 +4669,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "cell_spots":
         _cell_spots_phase(torch, smi, peaks)
+        return 0
+    if args.only == "analysis":
+        _analysis_phase(torch, smi, peaks)
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -4070,6 +4892,11 @@ def main(argv=None) -> int:
     # ---- 10. the per-cell spot path -------------------------------------------
     record["cell_spots"] = cell = _cell_spots_phase(torch, smi, peaks)
     cell_launches, cell_kernels = cell["launches"], cell["kernels"]
+    torch.cuda.empty_cache()
+
+    # ---- 11. polymer post-analysis and the rest of ops/ -----------------------
+    record["analysis"] = ana = _analysis_phase(torch, smi, peaks)
+    ana_launches = ana["launches"]
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -4089,13 +4916,15 @@ def main(argv=None) -> int:
          "dax_path_launches": dax_launches["lm_fit"],
          "experiment_launches": exp_launches["lm_fit"],
          "cell_spots_launches": cell_launches["lm_fit"],
+         "analysis_launches": ana_launches["lm_fit"],
          "shapes": {k: {f: v[f] for f in ("spots", "px", "iters", "ms",
                                           "plain_ms", "bound_ms",
                                           "max_abs_err")}
                     for k, v in {**lm_shapes, **{
                         f"cell crop {k[len('lm_fit '):]}": v
                         for k, v in cell_kernels.items()
-                        if k.startswith("lm_fit")}}.items()}},
+                        if k.startswith("lm_fit")},
+                        **ana["ops"]["lm_fit"]}.items()}},
         {"name": "seed_classify", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/seed_classify.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_kernels.py:522",
@@ -4105,6 +4934,7 @@ def main(argv=None) -> int:
          "bound_by": cls_bound[1], "library_ms": None,
          "dax_path_launches": dax_launches["seed_classify"],
          "cell_spots_launches": cell_launches["seed_classify"],
+         "analysis_launches": ana_launches["seed_classify"],
          "cell_crop": {k: cell_kernels["seed_classify"][k]
                        for k in ("shape", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "max_abs_err")}},
@@ -4137,8 +4967,11 @@ def main(argv=None) -> int:
          "dax_path_launches": dax_launches["gather_cubes"],
          "experiment_launches": exp_launches["gather_cubes"],
          "cell_spots_launches": cell_launches["gather_cubes"],
+         "analysis_launches": ana_launches["gather_cubes"],
          "entries": {"ball": {**gather["ball"],
-                              "cell_crop": cell_kernels["gather_cubes"]},
+                              "cell_crop": cell_kernels["gather_cubes"],
+                              **{f"analysis {k}": v for k, v in
+                                 ana["ops"]["gather"].items()}},
                      "cubes": gather["cubes"],
                      "gather_blocks": gather["gather_blocks"]}},
     ]

@@ -1,13 +1,15 @@
 """Carry a pipeline's and a decoder's state across from their NumPy form.
 
-The system has no learned weights.  A ``FovPipeline``'s state is the
+The pipeline has no learned weights.  A ``FovPipeline``'s state is the
 per-FOV arrays it holds (illumination and bleed profiles, chromatic
 constants and centre, per-channel seed thresholds, drift crop boxes) plus
 the prepared reference spectra; a ``DNAMerfishDecoder``'s state is its
 codebook tables and pixel sizes.  :func:`pipeline_from_arrays` and
 :func:`decoder_from_arrays` rebuild the port's objects from those arrays
 as NumPy (e.g. ``np.asarray`` of the JAX package's attributes), so the two
-packages compute the same thing.
+packages compute the same thing.  The one learned model, the cell-type
+classifier, crosses over by :func:`classifier_from_arrays` from a fitted
+scikit-learn ``MLPClassifier``'s ``coefs_`` and ``intercepts_``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .analysis.population import CellTypeClassifier
 from .config import config_from_dict
 from .decode.dna_decoder import DNAMerfishDecoder
 from .pipeline.fov import FovPipeline
@@ -93,3 +96,21 @@ def decoder_from_arrays(arrays: Dict[str, np.ndarray],
         arrays["pixel_sizes"], np.float32),
         pair_search_radius=pair_search_radius, num_homologs=num_homologs,
         keep_ratio_th=keep_ratio_th, device=device)
+
+
+def classifier_from_arrays(coefs, intercepts, classes, norm,
+                           device=None) -> CellTypeClassifier:
+    """Build a port ``CellTypeClassifier`` from a fitted classifier's NumPy
+    arrays: ``coefs`` and ``intercepts`` per layer in scikit-learn's layout
+    ((fan_in, fan_out) and (fan_out,), ``MLPClassifier.coefs_`` /
+    ``intercepts_``), its ``classes`` in sorted order and the count
+    normalisation ``norm`` = (mean, std) of the log-normalised counts (the
+    JAX classifier's ``_norm``)."""
+    clf = CellTypeClassifier(hidden=tuple(np.shape(c)[1]
+                                          for c in coefs[:-1]),
+                             device=device)
+    clf.set_layers([np.asarray(c, np.float64) for c in coefs],
+                   [np.asarray(b, np.float64) for b in intercepts])
+    clf.classes_ = np.asarray(classes)
+    clf._norm = tuple(np.asarray(a, np.float64) for a in norm)
+    return clf

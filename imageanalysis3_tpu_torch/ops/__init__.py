@@ -20,11 +20,18 @@ from .filters import (counting_median, gaussian_deconvolution,
 from .gaussian_fit import (FitResult, find_image_background, fit_fov_image,
                            get_centers, gfit_fast, iter_fit_seed_points,
                            select_sparse_centers)
-from .matching import align_beads, check_paired_centers, find_paired_centers
+from .matching import (accumulate_sequential_drifts, align_beads,
+                       align_manual_points, check_paired_centers,
+                       find_paired_centers, fit_matched_centers,
+                       generate_recombined_spots, rigid_transform_from_points,
+                       select_matched_spots, translate_spot_coordinates)
 from .profiles import (IlluminationProfiler, counting_quantile,
                        fit_spot_pair_regressions, generate_bleed_profile,
                        generate_chromatic_constants, invert_mixing_profile)
 from .seeding import Seeds, get_seeds
+from .legacy_fit import (fit_multi_gaussian, fit_seed_points_base,
+                         fitsinglegaussian_fixed_width, get_seed_points_base,
+                         get_STD_centers)
 from .warp import (fit_chromatic_constants, trilinear_map_coordinates,
                    warp_image, warp_image_drift, warp_spot_coords)
 
@@ -39,10 +46,16 @@ __all__ = [
     "iter_fit_seed_points", "fit_fov_image", "get_centers",
     "select_sparse_centers", "find_image_background", "FitResult",
     "gfit_fast", "find_paired_centers", "check_paired_centers",
-    "align_beads", "IlluminationProfiler", "generate_bleed_profile",
+    "align_beads", "accumulate_sequential_drifts",
+    "rigid_transform_from_points", "align_manual_points",
+    "translate_spot_coordinates", "select_matched_spots",
+    "generate_recombined_spots", "fit_matched_centers",
+    "IlluminationProfiler", "generate_bleed_profile",
     "generate_chromatic_constants", "counting_quantile",
     "fit_spot_pair_regressions", "invert_mixing_profile", "get_seeds",
-    "Seeds", "warp_image", "warp_image_drift", "warp_spot_coords",
+    "Seeds", "get_seed_points_base", "fitsinglegaussian_fixed_width",
+    "fit_seed_points_base", "get_STD_centers", "fit_multi_gaussian",
+    "warp_image", "warp_image_drift", "warp_spot_coords",
     "fit_chromatic_constants", "trilinear_map_coordinates",
     "kernel_launches", "reset_kernel_launches",
     "segmentation_bounding_boxes", "fit_spots_in_crops",

@@ -1,7 +1,7 @@
-"""Centre matching across rounds and channels: unique pairing and the
-neighbour-consistency check.
+"""Centre matching across rounds and channels: pairing, outlier checks,
+bead alignment, cross-experiment alignment and matched-centre fits.
 
-The counterpart of the pairing half of ``imageanalysis3_tpu/ops/matching.py``.
+The counterpart of ``imageanalysis3_tpu/ops/matching.py``.
 Behavior targets (reference ImageAnalysis3):
   * unique centre pairing          spot_tools/matching.py:148-223
     (find_paired_centers: shift ref by rough drift, keep mutually unique
@@ -11,6 +11,9 @@ Behavior targets (reference ImageAnalysis3):
     pairs deviating > mean + outlier_sigma * std)
   * bead-match drift               correction_tools/alignment.py:139-216
     (align_beads, use_fft=True)
+  * re-mount rigid alignment       correction_tools/alignment.py:7-77
+  * spot translation and matching  spot_tools/translating.py:95-149,
+    spot_tools/matching.py:6-147, spot_tools/relabelling.py:6-31
 
 Fixed-capacity masked centre tables; pairing is one (N, M) distance matrix
 with row/column-uniqueness votes; the Delaunay neighbourhood is the k
@@ -22,9 +25,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from ..device import as_tensor
 from .drift import fft3d_from2d
+from .filters import full_f32_matmul
 
 
 class PairedCenters(NamedTuple):
@@ -117,3 +123,127 @@ def align_beads(tar_cts: torch.Tensor, tar_valid: torch.Tensor,
         tar=pairs.tar, ref=pairs.ref,
         mask=torch.where(use, checked.mask, pairs.mask),
         n_pairs=torch.where(use, checked.n_pairs, pairs.n_pairs))
+
+
+# ---------------------------------------------------------------------------
+# Re-mount / cross-experiment rigid alignment
+# ---------------------------------------------------------------------------
+
+
+def rigid_transform_from_points(before, after, device=None):
+    """Best-fit rigid transform (R, t) with after ~= before @ R + t
+    (float64 on the device): the SVD of the centred cross covariance,
+    reflections removed by flipping U's last column (Kabsch)."""
+    before = as_tensor(before, device).to(torch.float64)
+    after = as_tensor(after, before.device).to(torch.float64)
+    c_before = before.mean(dim=0)
+    c_after = after.mean(dim=0)
+    h = (before - c_before).T @ (after - c_after)
+    u, _, vt = torch.linalg.svd(h)
+    if float(torch.linalg.det(u @ vt)) < 0:
+        u = u.clone()
+        u[:, -1] = -u[:, -1]
+    r = u @ vt
+    return r, -c_before @ r + c_after
+
+
+def align_manual_points(pos_file_before: str, pos_file_after: str,
+                        device=None):
+    """Two comma-delimited stage-position files -> (R, t)."""
+    return rigid_transform_from_points(
+        np.loadtxt(pos_file_before, delimiter=","),
+        np.loadtxt(pos_file_after, delimiter=","), device=device)
+
+
+def translate_spot_coordinates(spots, rotation_xy, center_xy, drift=None,
+                               device=None) -> torch.Tensor:
+    """Rotate spot xy about the image centre and shift: (N, 11) natural
+    rows into another experiment's frame; z passes through."""
+    spots = as_tensor(spots, device)
+    dev = spots.device
+    center_xy = as_tensor(center_xy, dev).to(spots.dtype)
+    rot = as_tensor(rotation_xy, dev).to(spots.dtype)
+    out = spots.clone()
+    with full_f32_matmul():
+        out[:, 2:4] = ((spots[:, 2:4] - center_xy[None]) @ rot
+                       + center_xy[None])
+    if drift is not None:
+        out[:, 1:4] = out[:, 1:4] + as_tensor(drift, dev).to(spots.dtype)
+    return out
+
+
+def select_matched_spots(cand_spots, ref_zxy, dist_th_nm: float,
+                         pixel_size_nm=(200.0, 108.0, 108.0), device=None):
+    """Brightest candidate within `dist_th_nm` of a reference position ->
+    (row, found); a NaN row when none is (float64 distances)."""
+    cand = as_tensor(cand_spots, device)
+    dev = cand.device
+    if cand.numel() == 0:
+        return torch.full((11,), float("nan"), dtype=torch.float64,
+                          device=dev), False
+    cand = torch.atleast_2d(cand)
+    px = torch.as_tensor(np.asarray(pixel_size_nm, np.float64), device=dev)
+    d = (cand[:, 1:4].to(torch.float64)
+         - as_tensor(ref_zxy, dev).to(torch.float64)[None]) * px
+    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                      + d[:, 2] * d[:, 2])
+    keep = dist <= dist_th_nm
+    if not bool(keep.any()):
+        return torch.full((11,), float("nan"), dtype=torch.float64,
+                          device=dev), False
+    sub = cand[keep]
+    return sub[torch.argmax(sub[:, 0])], True
+
+
+def fit_matched_centers(im, ref_centers, match_distance_th: float = 3.0,
+                        th_seed: float = 300.0, max_num_seeds: int = 256,
+                        device=None, **fit_kwargs) -> PairedCenters:
+    """Fit spot centres in `im` (``gaussian_fit.get_centers``: the seeding
+    classifier, the gather and the LM fit) and uniquely pair them to
+    `ref_centers` within `match_distance_th` px."""
+    from .gaussian_fit import get_centers
+
+    centers, valid = get_centers(im, th_seed=th_seed,
+                                 max_num_seeds=max_num_seeds, device=device,
+                                 **fit_kwargs)
+    dev = centers.device
+    ref = torch.as_tensor(np.atleast_2d(np.asarray(ref_centers, np.float32)),
+                          device=dev)
+    n = max(ref.shape[0], centers.shape[0])
+    ref_p = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    ref_p[:ref.shape[0]] = ref
+    ref_v = torch.zeros(n, dtype=torch.bool, device=dev)
+    ref_v[:ref.shape[0]] = True
+    cen_p = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    cen_p[:centers.shape[0]] = centers
+    cen_v = torch.zeros(n, dtype=torch.bool, device=dev)
+    cen_v[:valid.shape[0]] = valid
+    return find_paired_centers(cen_p, cen_v, ref_p, ref_v,
+                               cutoff=match_distance_th)
+
+
+def generate_recombined_spots(repeat_cand_spots, repeat_ids,
+                              original_cand_spots, original_ids):
+    """Replace relabelled regions' candidates with the repeat-hyb fits."""
+    if len(repeat_cand_spots) != len(repeat_ids):
+        raise IndexError("repeat spots/ids length mismatch")
+    if len(original_cand_spots) != len(original_ids):
+        raise IndexError("original spots/ids length mismatch")
+    out = list(original_cand_spots)
+    original_ids = np.asarray(original_ids)
+    for rid, spots in zip(repeat_ids, repeat_cand_spots):
+        idx = np.where(original_ids == rid)[0]
+        if len(idx) != 1:
+            raise ValueError(f"region {rid} has {len(idx)} matches")
+        out[int(idx[0])] = spots
+    return out
+
+
+def accumulate_sequential_drifts(step_drifts, device=None) -> torch.Tensor:
+    """Cumulative float32 drift against round 0 from consecutive-round
+    step drifts: (R-1, 3) -> (R, 3), row 0 zeros, row i the sum of steps
+    1..i."""
+    cum = torch.cumsum(as_tensor(step_drifts, device).to(torch.float32),
+                       dim=0)
+    return torch.cat([torch.zeros((1, 3), dtype=cum.dtype,
+                                  device=cum.device), cum])

@@ -270,11 +270,11 @@ class FovPipeline:
         """Process (R, C, Z, X, Y) rounds one after another -> a
         RoundResult whose fields stack the rounds' along a leading axis.
         The mesh form (rounds data-parallel over cards) is not ported yet
-        (ROADMAP queue 1 item 11)."""
+        (the ROADMAP item "parallel/ as torch.distributed")."""
         if mesh is not None:
             raise NotImplementedError(
-                "process_rounds over a mesh is not ported (ROADMAP queue 1 "
-                "item 11: parallel/ as torch.distributed)")
+                "process_rounds over a mesh is not ported (the ROADMAP item "
+                "\"parallel/ as torch.distributed\")")
         ims = torch.as_tensor(ims, device=self.device)
         ref = torch.as_tensor(ref_im, device=self.device)
         outs = [self.process_round(im, ref) for im in ims]

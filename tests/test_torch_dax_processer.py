@@ -311,7 +311,8 @@ def test_process_rounds_matches_jax_and_single_rounds(pipelines):
         one = tp.process_round(torch.from_numpy(ims[r]), t_ref)
         for f in got._fields:
             assert torch.equal(getattr(got, f)[r], getattr(one, f)), f
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="parallel/ as torch.distributed"):
         tp.process_rounds(ims, t_ref, mesh=object())
 
 
