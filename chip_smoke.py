@@ -129,7 +129,23 @@ Phases, each of which raises (exit code != 0) on a failed check:
    the cell-location tables; slice 1's bench stack through
    ``fit_matched_centers`` and the legacy fit adapters (seed_classify,
    lm_fit and gather_cubes counted per entry); each against the port's CPU
-   run on a subset.
+   run on a subset;
+12. segmentation (_segmentation_phase): a 60x2048x2048 DAPI channel of
+   phase 10's grid of nuclei, four positions holding a touching pair, each
+   nucleus with its own brightness, gradient and speckle, and a polyT
+   channel with a 1.5x halo: ``segment_nuclei``, ``screen_labels`` and
+   ``split_oversized_nuclei`` (one label a nucleus, single nuclei at IoU >=
+   0.85, each pair in two; a 60x256x256 crop equal to the CPU's); those
+   labels through ``DaxProcesser._fit_spots_by_segmentation`` on spots
+   planted in the same nuclei (seed_classify, lm_fit and gather_cubes;
+   >= 90 % in their own cell at a median <= 0.05 px); ``segment_cells``
+   (each cell holds its nucleus and ends in its halo); the 3D UNet at full
+   width trained 200 steps on one pooled crop, then
+   ``segment_fov_learned`` over the FOV (>= 90 % of nuclei at IoU >= 0.6,
+   ``unet_apply`` equal to the CPU's at atol 1e-4); cellpose's CPnet at
+   its 'nuclei' geometry with seeded random weights through
+   ``cellpose_flows_3d`` and ``segment_cells_cellpose`` (each view timed,
+   the f32 rate of its convolutions, one slice equal to the CPU's).
 
 The last three lines are a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
@@ -147,12 +163,14 @@ experiment`` builds the three kernels of phase 8 and runs that phase alone;
 ``--only picking`` runs phase 9 alone (no kernel; its self-scores then run
 on planted groups); ``--only cell_spots`` builds the per-cell path's three
 kernels and runs phase 10 alone; ``--only analysis`` builds seed_classify,
-lm_fit and gather_cubes and runs phase 11 alone.
+lm_fit and gather_cubes and runs phase 11 alone; ``--only segmentation``
+builds the same three and runs phase 12 alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import re
@@ -3084,58 +3102,80 @@ def _ellipsoid_value(p, centre, semi=CELL_SEMI):
     return (((np.asarray(p) - centre) / np.asarray(semi)) ** 2).sum(-1)
 
 
-def _nucleus_box(centre, shape):
+def _nucleus_box(centre, shape, semi=CELL_SEMI):
     """The (lo, hi) voxel box that holds one planted nucleus."""
-    lo = np.maximum(np.floor(centre - CELL_SEMI).astype(int), 0)
-    hi = np.minimum(np.ceil(centre + CELL_SEMI).astype(int) + 1, shape)
+    lo = np.maximum(np.floor(centre - np.asarray(semi)).astype(int), 0)
+    hi = np.minimum(np.ceil(centre + np.asarray(semi)).astype(int) + 1,
+                    shape)
     return lo, hi
 
 
-def _nuclei_labels(torch, shape, dev):
-    """The int32 label volume on `dev` of the grid of ellipsoidal nuclei."""
+def _grid_nuclei(shape):
+    """(cell id, centre, semi-axes) of phase 10's grid of nuclei."""
+    return [(cid, c, CELL_SEMI) for cid, c in _nucleus_centres(shape)]
+
+
+def _nuclei_labels(torch, shape, dev, nuclei=None, scale=1.0):
+    """The int32 label volume on `dev` of ellipsoidal nuclei (default
+    phase 10's grid), each semi-axis times `scale`; a voxel inside two
+    goes to the one whose ellipsoid value is lower (the first on a tie)."""
+    nuclei = _grid_nuclei(shape) if nuclei is None else nuclei
     labels = torch.zeros(shape, dtype=torch.int32, device=dev)
-    zz = torch.arange(shape[0], device=dev, dtype=torch.float64)
-    for cid, c in _nucleus_centres(shape):
-        lo, hi = _nucleus_box(c, shape)
-        xs = torch.arange(lo[1], hi[1], device=dev, dtype=torch.float64)
-        ys = torch.arange(lo[2], hi[2], device=dev, dtype=torch.float64)
-        v = (((zz[lo[0]:hi[0], None, None] - c[0]) / CELL_SEMI[0]) ** 2
-             + ((xs[None, :, None] - c[1]) / CELL_SEMI[1]) ** 2
-             + ((ys[None, None, :] - c[2]) / CELL_SEMI[2]) ** 2)
+    cen = torch.tensor([(0.0, 0.0, 0.0)] + [tuple(c) for _, c, _ in nuclei],
+                       dtype=torch.float64, device=dev)
+    sem = torch.tensor([(1.0, 1.0, 1.0)] + [tuple(np.asarray(s) * scale)
+                                            for _, _, s in nuclei],
+                       dtype=torch.float64, device=dev)
+    slot = torch.zeros(int(max(cid for cid, _, _ in nuclei)) + 1,
+                       dtype=torch.int64, device=dev)
+    slot[torch.tensor([cid for cid, _, _ in nuclei], device=dev)] = \
+        torch.arange(1, len(nuclei) + 1, device=dev)
+    for cid, c, semi in nuclei:
+        semi = np.asarray(semi) * scale
+        lo, hi = _nucleus_box(c, shape, semi)
+        axes = [torch.arange(lo[a], hi[a], device=dev, dtype=torch.float64)
+                for a in range(3)]
+        grid = (axes[0][:, None, None], axes[1][None, :, None],
+                axes[2][None, None, :])
+        v = sum(((grid[a] - c[a]) / semi[a]) ** 2 for a in range(3))
         box = labels[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
-        box[v <= 1.0] = cid
+        k = slot[box.long()]
+        v_cur = sum(((grid[a] - cen[k, a]) / sem[k, a]) ** 2
+                    for a in range(3))
+        box[(v <= 1.0) & ((box == 0) | (v < v_cur))] = cid
     return labels
 
 
-def _nuclei_scene(torch, rng, shape, dev):
-    """Phase 10's scene: the label volume (int32 on `dev`) of a grid of
-    ellipsoidal nuclei, CELL_DIM dim spots inside each (at most 0.75 of
-    the way to its surface, 8 px apart), CELL_CLUTTER bright spots at least
-    8 px outside every nucleus, rendered over background 150 with shot and
-    read noise (bench.py's scene) -> (labels, uint16 stack, {cell: (20, 3)
-    dim centres}, (n, 3) clutter centres)."""
+def _nuclei_scene(torch, rng, shape, dev, nuclei=None):
+    """Phase 10's scene: the label volume (int32 on `dev`) of ellipsoidal
+    nuclei (default phase 10's grid), CELL_DIM dim spots inside each (at
+    most 0.75 of the way to its surface, 8 px apart), CELL_CLUTTER bright
+    spots at least 8 px outside every nucleus, rendered over background 150
+    with shot and read noise (bench.py's scene) -> (labels, uint16 stack,
+    {cell: (20, 3) dim centres}, (n, 3) clutter centres)."""
     from imageanalysis3_tpu_torch import synthetic as syn
 
-    nuclei = _nucleus_centres(shape)
-    labels = _nuclei_labels(torch, shape, dev)
+    nuclei = _grid_nuclei(shape) if nuclei is None else nuclei
+    labels = _nuclei_labels(torch, shape, dev, nuclei)
     dim = {}
-    for cid, c in nuclei:
+    for cid, c, semi in nuclei:
         pts = []
         while len(pts) < CELL_DIM:
-            p = c + rng.uniform(-1, 1, 3) * CELL_SEMI
-            if _ellipsoid_value(p, c) > 0.75 ** 2:
+            p = c + rng.uniform(-1, 1, 3) * semi
+            if _ellipsoid_value(p, c, semi) > 0.75 ** 2:
                 continue
             if all(np.linalg.norm(p - q) >= 8.0 for q in pts):
                 pts.append(p)
         dim[cid] = np.asarray(pts)
     clutter = []
-    margin = 1.0 + 8.0 / min(CELL_SEMI)
-    centres = np.asarray([c for _, c in nuclei])
+    margin = 1.0 + 8.0 / min(min(s) for _, _, s in nuclei)
+    centres = np.asarray([c for _, c, _ in nuclei])
+    semis = np.asarray([s for _, _, s in nuclei])
     while len(clutter) < CELL_CLUTTER:
         p = np.array([rng.uniform(8, shape[0] - 8),
                       rng.uniform(8, shape[1] - 8),
                       rng.uniform(8, shape[2] - 8)])
-        if (_ellipsoid_value(p, centres) <= margin ** 2).any():
+        if (_ellipsoid_value(p, centres, semis) <= margin ** 2).any():
             continue
         if all(np.linalg.norm(p - q) >= 8.0 for q in clutter[-200:]):
             clutter.append(p)
@@ -3776,6 +3816,547 @@ def _cell_spots_phase(torch, smi: str, peaks) -> dict:
           f"references; peak memory {rec['peak_memory_bytes'] / 2**30:.2f} "
           f"GiB; seconds { {k: round(v, 4) for k, v in secs.items()} }  "
           f"[{smi}]")
+    return rec
+
+
+#: phase 12's scene: phase 10's grid of nuclei as a DAPI channel, four grid
+#: positions holding a touching pair each, and a polyT channel
+SEG_PAIRS = ((1, 1), (2, 5), (5, 2), (6, 6))
+SEG_PAIR_SEMI = (30.0, 60.0, 60.0)  # each member of a pair
+SEG_PAIR_HALF = 56.0                # member centres +-56 px in x (8 px overlap)
+SEG_BRIGHTNESS = (800.0, 1100.0)    # per nucleus
+SEG_GRADIENT = 0.15                 # +-15 % along a random direction in xy
+SEG_SPECKLE = 0.1                   # lognormal sigma, multiplicative
+SEG_BACKGROUND = 100.0
+SEG_READ_NOISE = 10.0
+SEG_HALO = 1.5                      # polyT halo, x the nucleus semi-axes
+SEG_HALO_EDGE = 16                  # px in xy: a cell ends inside the halo
+                                    # dilated by 2 sigma (the polyT is
+                                    # smoothed at sigma 8 before its cut)
+SEG_POLYT = 600.0
+SEG_PX = (250.0, 108.0, 108.0)      # nm per voxel (z, x, y)
+
+
+def _seg_nuclei(shape):
+    """Phase 12's nuclei: (cell id, centre, semi-axes) of phase 10's grid
+    with each SEG_PAIRS position holding two touching nuclei, and the pairs'
+    (id, id)."""
+    nuclei, pairs = [], []
+    for i in range(shape[1] // CELL_PITCH):
+        for j in range(shape[2] // CELL_PITCH):
+            c = np.array([(shape[0] - 1) / 2.0, CELL_PITCH / 2.0
+                          + CELL_PITCH * i, CELL_PITCH / 2.0 + CELL_PITCH * j])
+            if (i, j) in SEG_PAIRS:
+                pairs.append((len(nuclei) + 1, len(nuclei) + 2))
+                for sign in (-1.0, 1.0):
+                    nuclei.append((len(nuclei) + 1,
+                                   c + np.array([0.0, sign * SEG_PAIR_HALF,
+                                                 0.0]), SEG_PAIR_SEMI))
+            else:
+                nuclei.append((len(nuclei) + 1, c, CELL_SEMI))
+    return nuclei, pairs
+
+
+def _noisy(torch, im, gen):
+    """Multiplicative lognormal speckle, then read noise, in place."""
+    im *= torch.exp(SEG_SPECKLE * torch.randn(im.shape, generator=gen,
+                                              device=im.device))
+    im += SEG_READ_NOISE * torch.randn(im.shape, generator=gen,
+                                       device=im.device)
+    return im
+
+
+def _dapi_scene(torch, rng, shape, dev, nuclei, seed=120):
+    """Phase 12's channels on `dev`: each nucleus of its own brightness
+    (SEG_BRIGHTNESS) with a +-15 % gradient along a random xy direction, a
+    polyT halo of SEG_HALO x its semi-axes, both over SEG_BACKGROUND with
+    speckle and read noise -> (planted labels, dapi, polyT, halo labels)."""
+    labels = _nuclei_labels(torch, shape, dev, nuclei)
+    bright = rng.uniform(*SEG_BRIGHTNESS, len(nuclei))
+    angle = rng.uniform(0.0, 2.0 * np.pi, len(nuclei))
+    dapi = torch.full(shape, SEG_BACKGROUND, dtype=torch.float32, device=dev)
+    for k, (cid, c, semi) in enumerate(nuclei):
+        lo, hi = _nucleus_box(c, shape, semi)
+        xs = torch.arange(lo[1], hi[1], device=dev, dtype=torch.float32)
+        ys = torch.arange(lo[2], hi[2], device=dev, dtype=torch.float32)
+        proj = ((xs[:, None] - c[1]) * np.cos(angle[k])
+                + (ys[None, :] - c[2]) * np.sin(angle[k])) / semi[1]
+        box = dapi[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        inside = labels[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] == cid
+        box += torch.where(inside, bright[k] * (1.0 + SEG_GRADIENT * proj),
+                           0.0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _noisy(torch, dapi, gen)
+    halo = _nuclei_labels(torch, shape, dev, nuclei, scale=SEG_HALO)
+    polyt = _noisy(torch, SEG_BACKGROUND + SEG_POLYT * (halo > 0).to(
+        torch.float32), gen)
+    return labels, dapi, polyt, halo
+
+
+#: phase 12's segmentation parameters: sigma in finest-pitch px (8 x 8 x
+#: 3.5 voxels at SEG_PX), one seed a nucleus
+SEG_SMOOTH = 8.0
+SEG_MIN_DIST = 100.0
+SEG_MAX_NUCLEI = 128
+SEG_MIN_SIZE = 20000                # voxels, segment_nuclei / segment_cells
+SEG_SCREEN = dict(min_size_voxels=100000, min_shape_ratio=0.03,
+                  boundary_margin=8)
+SEG_SPLIT = dict(max_size_voxels=800000, smooth_sigma=SEG_SMOOTH,
+                 seed_min_distance=100.0, max_seeds_per_label=2,
+                 pixel_sizes=SEG_PX)
+SEG_CROP = (3, 3)                   # grid position of the CPU-checked crop
+SEG_CROP_XY = 256
+SEG_IOU = 0.85                      # single nuclei
+SEG_PAIR_IOU = 0.6                  # members of a touching pair
+#: the learned path: init_unet_params' full width, trained on one pooled
+#: crop, then the FOV at downsample (1, 4, 4)
+SEG_DOWN = (1, 4, 4)
+SEG_TRAIN_XY = 128                  # pooled px
+SEG_TRAIN_STEPS = 200
+SEG_LR = 2e-3
+SEG_LEARNED_IOU = 0.6
+SEG_LEARNED_SHARE = 0.9
+SEG_UNET_CPU = (20, 64, 64)         # pooled crop held against the CPU
+#: cellpose's 'nuclei' geometry on (d)'s pooled volume edge-padded to 64
+#: planes
+SEG_CP_Z = 64
+
+
+def _best_iou(torch, labels, truth, n_truth):
+    """Per planted id 1..n_truth: (best IoU, the label that gives it) over
+    the labels it overlaps, from one joint histogram on the device."""
+    lab = labels.reshape(-1).long()
+    tru = truth.reshape(-1).long()
+    n_lab = int(lab.max()) + 1
+    joint = torch.bincount(tru * n_lab + lab, minlength=(n_truth + 1)
+                           * n_lab).reshape(n_truth + 1, n_lab).cpu().numpy()
+    t_size, l_size = joint.sum(1), joint.sum(0)
+    inter = joint[1:, 1:].astype(np.float64)
+    iou = inter / np.maximum(t_size[1:, None] + l_size[None, 1:] - inter, 1)
+    if iou.shape[1] == 0:
+        return np.zeros(n_truth), np.zeros(n_truth, np.int64)
+    return iou.max(1), iou.argmax(1) + 1
+
+
+def _seg_dapi(torch, dev, shape, scene, timed, smi):
+    """Phase 12 (a): segment_nuclei -> screen_labels ->
+    split_oversized_nuclei on the DAPI channel, the gates on the planted
+    nuclei, and a 60 x 256 x 256 crop on the card against the CPU."""
+    from imageanalysis3_tpu_torch.segmentation import nuclei as sn
+
+    nuclei, pairs, truth, dapi = (scene[k] for k in ("nuclei", "pairs",
+                                                     "truth", "dapi"))
+    kw = dict(smooth_sigma=SEG_SMOOTH, seed_min_distance=SEG_MIN_DIST,
+              max_num_nuclei=SEG_MAX_NUCLEI, min_size_voxels=SEG_MIN_SIZE,
+              pixel_sizes=SEG_PX)
+    torch.cuda.reset_peak_memory_stats()
+    labels, _coords, valid = timed("segment_nuclei",
+                                   lambda: sn.segment_nuclei(dapi, **kw))
+    rec = {"sweeps": sn.propagation_sweeps(), "seeds": int(valid.sum())}
+    screened = timed("screen_labels",
+                     lambda: sn.screen_labels(labels, **SEG_SCREEN))
+    split = timed("split_oversized_nuclei",
+                  lambda: sn.split_oversized_nuclei(dapi, screened,
+                                                    **SEG_SPLIT))
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    n = len(nuclei)
+    iou, best = _best_iou(torch, split, truth, n)
+    member = {i for pair in pairs for i in pair}
+    singles = [cid for cid, _, _ in nuclei if cid not in member]
+    rec.update(labels=int(len(torch.unique(split))) - 1, planted=n,
+               single_iou_min=float(min(iou[c - 1] for c in singles)),
+               single_iou_median=float(np.median([iou[c - 1]
+                                                  for c in singles])),
+               pair_iou=[[round(float(iou[a - 1]), 4),
+                          round(float(iou[b - 1]), 4)] for a, b in pairs],
+               pair_labels=[[int(best[a - 1]), int(best[b - 1])]
+                            for a, b in pairs])
+    if rec["labels"] != n or rec["single_iou_min"] < SEG_IOU:
+        raise AssertionError(f"segmentation (a): {rec}")
+    for (a, b), (la, lb) in zip(pairs, rec["pair_labels"]):
+        if la == lb or min(iou[a - 1], iou[b - 1]) < SEG_PAIR_IOU:
+            raise AssertionError(f"segmentation (a): pair {(a, b)} not "
+                                 f"split into two: {rec}")
+    # the crop: one nucleus, cut by a few px, and its neighbours' edges
+    ci, cj = SEG_CROP
+    x0 = CELL_PITCH * ci + CELL_PITCH // 2 - SEG_CROP_XY // 4
+    y0 = CELL_PITCH * cj + CELL_PITCH // 2 - SEG_CROP_XY // 4
+    crop = dapi[:, x0:x0 + SEG_CROP_XY, y0:y0 + SEG_CROP_XY].contiguous()
+    card = sn.segment_nuclei(crop, **kw)[0]
+    card_sweeps = sn.propagation_sweeps()
+    t0 = time.perf_counter()
+    cpu = sn.segment_nuclei(crop.cpu(), **kw)[0]
+    rec["cpu_crop_s"] = time.perf_counter() - t0
+    differ = int((card.cpu() != cpu).sum())
+    rec["crop"] = {"shape": list(crop.shape), "labels": int(cpu.max()),
+                   "differing_voxels": differ, "sweeps_card": card_sweeps,
+                   "sweeps_cpu": sn.propagation_sweeps()}
+    if differ or card_sweeps != rec["crop"]["sweeps_cpu"]:
+        raise AssertionError(f"segmentation (a): the crop's labels on the "
+                             f"card differ from the CPU's: {rec['crop']}")
+    print(f"segmentation (a): {rec['labels']} labels for {n} planted "
+          f"nuclei ({len(pairs)} touching pairs, each split in two, member "
+          f"IoU {rec['pair_iou']}); single nuclei IoU min "
+          f"{rec['single_iou_min']:.4f}, median "
+          f"{rec['single_iou_median']:.4f}; {rec['seeds']} seeds, "
+          f"{rec['sweeps']} propagation sweeps; crop {tuple(crop.shape)} "
+          f"equal to the CPU's ({rec['cpu_crop_s']:.2f} s on the CPU); peak "
+          f"memory {rec['peak_memory_bytes'] / 2**30:.2f} GiB  [{smi}]")
+    return rec, split, best
+
+
+def _seg_cell_spots(torch, dev, shape, scene, labels, best, timed, smi):
+    """Phase 12 (b): the segmented nuclei into the per-cell spot path on a
+    spot channel planted in the same nuclei."""
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+    from imageanalysis3_tpu_torch.pipeline import DaxProcesser
+
+    nuclei = scene["nuclei"]
+    _, stack, dim, _clutter = timed("spot_scene", lambda: _nuclei_scene(
+        torch, np.random.default_rng(60), shape, dev, nuclei))
+    proc = DaxProcesser("unwritten.dax", correction_channels=["750"],
+                        all_channels=["750"], single_im_size=shape,
+                        device=dev)
+    proc.ims["750"] = stack.to(torch.float32)
+    del stack
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    spots, ids = timed("fit_by_segmentation",
+                       lambda: proc._fit_spots_by_segmentation(
+                           "750", labels, th_seed=CELL_TH_SEED,
+                           num_spots=CELL_NUM_SPOTS,
+                           segment_search_radius=CELL_SEARCH))
+    launches = kernel_launches()
+    for name in CELL_PATH:
+        if launches[name] < 1:
+            raise AssertionError(f"segmentation (b): kernel {name} did not "
+                                 f"launch: {launches}")
+    sp, cid = spots.cpu().numpy(), ids.cpu().numpy()
+    mapped = {int(best[c - 1]): pts for c, pts in dim.items()}
+    matched, n_planted = _cell_recovery(sp, cid, mapped)
+    rec = {"launches": launches, "kept": len(sp), "planted": n_planted,
+           "matched": len(matched),
+           "median_err_px": float(np.median(matched)) if len(matched)
+           else float("nan")}
+    near = _near_own_mask(torch, labels, spots, ids, CELL_SEARCH)
+    rec["beyond_mask"] = int((~near).sum())
+    if not (len(matched) >= 0.9 * n_planted
+            and rec["median_err_px"] <= 0.05 and rec["beyond_mask"] == 0):
+        raise AssertionError(f"segmentation (b): {rec}")
+    print(f"segmentation (b): segmented nuclei through "
+          f"_fit_spots_by_segmentation: {rec['matched']} of {n_planted} "
+          f"planted spots in their own cell at a median "
+          f"{rec['median_err_px']:.5f} px, {rec['kept']} kept, all within "
+          f"{CELL_SEARCH} px of their mask; launches {launches}  [{smi}]")
+    return rec
+
+
+def _seg_cells(torch, dev, scene, timed, smi):
+    """Phase 12 (c): segment_cells on DAPI + polyT: each cell holds its
+    nucleus and ends inside the polyT halos."""
+    from imageanalysis3_tpu_torch.segmentation import nuclei as sn
+
+    cells, nucs = timed("segment_cells", lambda: sn.segment_cells(
+        scene["dapi"], scene["polyt"], pixel_sizes=SEG_PX,
+        smooth_sigma=SEG_SMOOTH, seed_min_distance=SEG_MIN_DIST,
+        max_num_nuclei=SEG_MAX_NUCLEI, min_size_voxels=SEG_MIN_SIZE))
+    r = SEG_HALO_EDGE
+    edge = (scene["halo"] > 0).to(torch.float16)[None, None]
+    edge = torch.nn.functional.max_pool3d(edge, (1, 2 * r + 1, 1), 1,
+                                          (0, r, 0))
+    edge = torch.nn.functional.max_pool3d(edge, (1, 1, 2 * r + 1), 1,
+                                          (0, 0, r))[0, 0]
+    rec = {"sweeps": sn.propagation_sweeps(),
+           "cells": int(len(torch.unique(cells))) - 1,
+           "nucleus_outside_its_cell": int(((nucs > 0) & (cells != nucs))
+                                           .sum()),
+           "beyond_halo": int(((cells > 0) & (edge == 0)).sum()),
+           "beyond_halo_1_5": int(((cells > 0) & (scene["halo"] == 0))
+                                  .sum()),
+           "cell_voxels_per_nucleus_voxel": float((cells > 0).sum())
+           / max(float((nucs > 0).sum()), 1.0)}
+    rec["nuclei"] = int(len(torch.unique(nucs))) - 1
+    if (rec["nucleus_outside_its_cell"] or rec["beyond_halo"]
+            or rec["cell_voxels_per_nucleus_voxel"] < 1.3
+            or rec["cells"] != rec["nuclei"]
+            or rec["cells"] < len(scene["nuclei"]) - len(scene["pairs"])):
+        raise AssertionError(f"segmentation (c): {rec}")
+    print(f"segmentation (c): segment_cells: {rec['cells']} cells, each "
+          f"holding its nucleus and inside the {SEG_HALO} x halos dilated "
+          f"by {SEG_HALO_EDGE} px ({rec['beyond_halo_1_5']} voxels beyond the "
+          f"halos themselves); "
+          f"{rec['cell_voxels_per_nucleus_voxel']:.3f} cell voxels a "
+          f"nucleus voxel; {rec['sweeps']} sweeps of the polyT expansion  "
+          f"[{smi}]")
+    return rec
+
+
+def _seg_learned(torch, dev, scene, timed, secs, smi):
+    """Phase 12 (d): the 3D UNet at init_unet_params' full width trained on
+    one pooled crop, then segment_fov_learned over the FOV."""
+    from imageanalysis3_tpu_torch.segmentation import learned as sl
+
+    im = torch.stack([scene["dapi"], scene["polyt"]])
+    c, z, x, y = im.shape
+    dz, dx, dy = SEG_DOWN
+    pooled = im.reshape(c, z // dz, dz, x // dx, dx, y // dy, dy).mean(
+        dim=(2, 4, 6))
+    truth_p = scene["truth"][::dz, dx // 2::dx, dy // 2::dy]
+    crop = pooled[:, :, :SEG_TRAIN_XY, :SEG_TRAIN_XY].contiguous()
+    crop_truth = truth_p[:, :SEG_TRAIN_XY, :SEG_TRAIN_XY].cpu().numpy()
+    net = sl.init_unet_params(torch.Generator().manual_seed(121),
+                              in_channels=2, base=16, levels=3, device=dev)
+    trained = timed("fit_unet", lambda: sl.fit_unet(
+        net, [crop], [crop_truth], n_steps=SEG_TRAIN_STEPS, lr=SEG_LR))
+    rec_prof = _fit_step_profile(torch, sl, trained, crop, crop_truth)
+    labels = timed("segment_fov_learned", lambda: sl.segment_fov_learned(
+        im, trained, downsample=SEG_DOWN, max_cells=SEG_MAX_NUCLEI))
+    del im
+    n = len(scene["nuclei"])
+    iou, _ = _best_iou(torch, labels, scene["truth"], n)
+    rec = {"labels": int(labels.max()), "iou_median": float(np.median(iou)),
+           "iou_min": float(iou.min()),
+           "share_at_bar": float((iou >= SEG_LEARNED_IOU).mean()),
+           "s_per_step": secs["fit_unet"] / SEG_TRAIN_STEPS,
+           "fov_s": secs["segment_fov_learned"], "step_profile": rec_prof}
+    # the card's forward on one pooled crop against the CPU's
+    zc, xc, yc = SEG_UNET_CPU
+    small = pooled[:, :zc, :xc, :yc].contiguous()
+    with torch.no_grad():
+        f_card, l_card = sl.unet_apply(trained, small)
+        cpu_net = copy.deepcopy(trained).cpu()
+        f_cpu, l_cpu = sl.unet_apply(cpu_net, small.cpu())
+    rec["unet_cpu_max_abs_err"] = max(
+        float((f_card.cpu() - f_cpu).abs().max()),
+        float((l_card.cpu() - l_cpu).abs().max()))
+    if rec["share_at_bar"] < SEG_LEARNED_SHARE:
+        raise AssertionError(f"segmentation (d): {rec}")
+    if rec["unet_cpu_max_abs_err"] > 1e-4:
+        raise AssertionError(f"segmentation (d): unet_apply on the card vs "
+                             f"the CPU {rec['unet_cpu_max_abs_err']}")
+    print(f"segmentation (d): UNet3D (2 in, base 16, 3 levels) trained "
+          f"{SEG_TRAIN_STEPS} steps on a {tuple(crop.shape)} pooled crop, "
+          f"{rec['s_per_step']:.4f} s a step; segment_fov_learned over "
+          f"{tuple(scene['dapi'].shape)} x 2 at {SEG_DOWN} in "
+          f"{rec['fov_s']:.3f} s: {rec['labels']} labels, planted nuclei at "
+          f"IoU >= {SEG_LEARNED_IOU}: {100 * rec['share_at_bar']:.1f} % "
+          f"(median {rec['iou_median']:.4f}, min {rec['iou_min']:.4f}); "
+          f"unet_apply on {SEG_UNET_CPU} within "
+          f"{rec['unet_cpu_max_abs_err']:.3g} of the CPU; a profiled step: "
+          f"{rec_prof['device_ms']:.2f} ms on the device, weight gradients "
+          f"{rec_prof['wgrad_ms']:.2f} ms, top {rec_prof['top'][:4]}  "
+          f"[{smi}]")
+    return rec, pooled
+
+
+def _fit_step_profile(torch, sl, net, crop, crop_truth, steps=2) -> dict:
+    """Device time of `steps` more fit_unet steps under torch.profiler, per
+    step: the total, cuDNN's weight-gradient kernels, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sl.fit_unet(net, [crop], [crop_truth], n_steps=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sl.fit_unet(net, [crop], [crop_truth], n_steps=steps)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3 / steps, ev.key))
+    rows.sort(reverse=True)
+    return {"device_ms": sum(r[0] for r in rows),
+            "wgrad_ms": sum(r[0] for r in rows if "wgrad" in r[1]),
+            "top": [[round(ms, 3), key[:60]] for ms, key in rows[:8]]}
+
+
+def _cpnet_random(torch, dev, seed=122):
+    """cellpose's 'nuclei' CPnet with every weight and BatchNorm statistic
+    drawn from a seeded generator (torch's default init scale, the
+    statistics as tests/test_cellpose_net.py draws them)."""
+    from imageanalysis3_tpu_torch.segmentation import cellpose_net as cp
+
+    gen = torch.Generator().manual_seed(seed)
+    net = cp.CPnet(cp.DEFAULT_NBASE)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                bound = 1.0 / np.sqrt(m.weight[0].numel())
+                for t in (m.weight, m.bias):
+                    t.copy_((torch.rand(t.shape, generator=gen) * 2 - 1)
+                            * bound)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.5)
+                m.running_var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
+                m.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.3)
+    return net.to(dev).eval()
+
+
+def _cpnet_flops(torch, net, h, w) -> float:
+    """Convolution and Linear FLOPs of one (h, w) slice, from the layer
+    shapes a forward of one slice meets (2 x in x out x taps x outputs)."""
+    total = [0.0]
+
+    def hook(m, _inp, out):
+        taps = int(np.prod(m.kernel_size)) if hasattr(m, "kernel_size") \
+            else 1
+        spatial = out.shape[-1] * out.shape[-2] \
+            if isinstance(m, torch.nn.Conv2d) else 1
+        total[0] += 2.0 * m.in_features * m.out_features * out.shape[0] \
+            if isinstance(m, torch.nn.Linear) else \
+            2.0 * m.in_channels * m.out_channels * taps * spatial \
+            * out.shape[0]
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            net(torch.zeros((1, net.nbase[0], h, w),
+                            device=next(net.parameters()).device))
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return total[0]
+
+
+def _seg_cellpose(torch, dev, pooled, timed, secs, peaks, smi):
+    """Phase 12 (e): CPnet at cellpose's nuclei geometry on (d)'s pooled
+    volume edge-padded in z to SEG_CP_Z planes: the three views timed, the
+    flows and labels, one slice against the CPU, the achieved f32 rate."""
+    from imageanalysis3_tpu_torch.segmentation import cellpose_net as cp
+
+    net = _cpnet_random(torch, dev)
+    pad = SEG_CP_Z - pooled.shape[1]
+    vol = torch.cat([pooled, pooled[:, -1:].expand(-1, pad, -1, -1)], dim=1)
+    c, z, x, y = vol.shape
+    # each view's chunks timed where cellpose_flows_3d runs them
+    run_view, n_view = cp._run_view, [0]
+
+    def timed_view(net_, slices):
+        n_view[0] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield from run_view(net_, slices)
+        torch.cuda.synchronize()
+        secs[f"cellpose view {n_view[0]}"] = time.perf_counter() - t0
+
+    cp._run_view = timed_view
+    try:
+        flow, prob = timed("cellpose_flows_3d",
+                           lambda: cp.cellpose_flows_3d(net, vol))
+    finally:
+        cp._run_view = run_view
+    views, flops = {}, 0.0
+    for k, (n_slices, h, w) in enumerate(((z, x, y), (x, z, y), (y, z, x))):
+        n_flops = _cpnet_flops(torch, net, h, w) * n_slices
+        views[f"cellpose view {k + 1}"] = {
+            "slices": n_slices, "slice": [h, w],
+            "s": secs[f"cellpose view {k + 1}"], "tflop": n_flops / 1e12}
+        flops += n_flops
+    labels = timed("segment_cells_cellpose", lambda: cp.segment_cells_cellpose(
+        vol, net, max_cells=SEG_MAX_NUCLEI))
+    norm = cp._normalize99(vol)
+    finite = bool(torch.isfinite(flow).all() and torch.isfinite(prob).all())
+    one = norm.movedim(2, 0)[:1].contiguous()
+    f_card, p_card = cp._run_slices(net, one)
+    f_cpu, p_cpu = cp._run_slices(copy.deepcopy(net).cpu(), one.cpu())
+    err = max(float((f_card.cpu() - f_cpu).abs().max()),
+              float((p_card.cpu() - p_cpu).abs().max()))
+    view_s = sum(v["s"] for v in views.values())
+    rec = {"views": views, "flops": flops, "view_s": view_s,
+           "tflops_per_s": flops / view_s / 1e12,
+           "share_of_f32_peak": flops / view_s / peaks[1],
+           "finite": finite, "cpu_slice_max_abs_err": err,
+           "labels": int(labels.max()), "labels_shape": list(labels.shape),
+           "out_abs_max": float(flow.abs().max())}
+    if not finite or err > 1e-4 or tuple(labels.shape) != (z, x, y):
+        raise AssertionError(f"segmentation (e): {rec}")
+    print(f"segmentation (e): CPnet {cp.DEFAULT_NBASE} on {tuple(vol.shape)}: "
+          f"views {views}; {flops / 1e12:.2f} TFLOP in {view_s:.3f} s = "
+          f"{rec['tflops_per_s']:.2f} TFLOP/s f32, "
+          f"{100 * rec['share_of_f32_peak']:.1f} % of {peaks[2]}; flows "
+          f"finite, one slice within {err:.3g} of the CPU; "
+          f"segment_cells_cellpose {rec['labels']} labels  [{smi}]")
+    return rec
+
+
+def _segmentation_phase(torch, smi: str, peaks) -> dict:
+    """Phase 12: segmentation on the card at a lab's size.
+
+    The scene (_seg_nuclei, _dapi_scene): phase 10's 8 x 8 grid of
+    ellipsoidal nuclei (semi-axes 30 x 70 x 70 px, 256 px apart) in a
+    60 x 2048 x 2048 DAPI channel, the SEG_PAIRS positions each holding a
+    touching pair (semi-axes 30 x 60 x 60, centres 112 px apart), every
+    nucleus of its own brightness (800-1100) with a +-15 % gradient along
+    a random xy direction, lognormal speckle (sigma 0.1) over background
+    100 and read noise; a polyT channel with a 1.5 x halo.  (a)
+    ``segment_nuclei`` (pixel sizes 250 x 108 x 108 nm, sigma 8, seeds 100
+    px apart, 128 seeds), ``screen_labels``, ``split_oversized_nuclei``:
+    one label a planted nucleus, single nuclei at IoU >= 0.85, each pair in
+    two labels (members at IoU >= 0.6), a 60 x 256 x 256 crop's labels on
+    the card equal to the port's CPU run.  (b) Those labels through
+    ``DaxProcesser._fit_spots_by_segmentation`` on a spot channel planted
+    in the same nuclei (phase 10's spots): >= 90 % of planted spots in
+    their own cell at a median <= 0.05 px, every kept spot near its mask,
+    seed_classify, lm_fit and gather_cubes launched.  (c)
+    ``segment_cells`` with the polyT: every nucleus inside its cell, every
+    cell inside the halos.  (d) ``init_unet_params`` at full width (2
+    channels, base 16, 3 levels), ``fit_unet`` 200 steps on a 60 x 128 x
+    128 crop of the (1, 4, 4)-pooled channels, ``segment_fov_learned`` over
+    the FOV: >= 90 % of planted nuclei at IoU >= 0.6; ``unet_apply`` on a
+    pooled crop equal to the CPU's at atol 1e-4.  (e) cellpose's CPnet at
+    the 'nuclei' geometry with seeded random weights: ``cellpose_flows_3d``
+    and ``segment_cells_cellpose`` on (d)'s pooled volume padded to 64
+    planes, each view timed, the f32 rate from the layer shapes, one slice
+    equal to the CPU's at atol 1e-4.  Timed on the host clock around
+    ``torch.cuda.synchronize()``."""
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    secs = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    t_phase = time.perf_counter()
+    shape = SHAPE
+    nuclei, pairs = _seg_nuclei(shape)
+    truth, dapi, polyt, halo = timed("scene", lambda: _dapi_scene(
+        torch, np.random.default_rng(12), shape, dev, nuclei))
+    scene = {"nuclei": nuclei, "pairs": pairs, "truth": truth, "dapi": dapi,
+             "polyt": polyt, "halo": halo}
+    rec = {"seconds": secs}
+    rec["dapi"], labels, best = _seg_dapi(torch, dev, shape, scene, timed,
+                                          smi)
+    rec["cell_spots"] = _seg_cell_spots(torch, dev, shape, scene, labels,
+                                        best, timed, smi)
+    rec["launches"] = rec["cell_spots"]["launches"]
+    del labels
+    torch.cuda.empty_cache()
+    rec["cells"] = _seg_cells(torch, dev, scene, timed, smi)
+    torch.cuda.empty_cache()
+    rec["learned"], pooled = _seg_learned(torch, dev, scene, timed, secs,
+                                          smi)
+    del scene, truth, dapi, polyt, halo
+    torch.cuda.empty_cache()
+    rec["cellpose"] = _seg_cellpose(torch, dev, pooled, timed, secs, peaks,
+                                    smi)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"segmentation: phase {rec['phase_seconds']:.1f} s with its CPU "
+          f"references; seconds "
+          f"{ {k: round(v, 4) for k, v in secs.items()} }; kernel launches "
+          f"{rec['launches']}  [{smi}]")
     return rec
 
 
@@ -4602,7 +5183,8 @@ def main(argv=None) -> int:
                                        "lm_fit", "dual_blur", "level_stencil",
                                        "gather_cubes", "gather_blocks",
                                        "dax_path", "experiment", "picking",
-                                       "cell_spots", "analysis"],
+                                       "cell_spots", "analysis",
+                                       "segmentation"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
@@ -4612,7 +5194,8 @@ def main(argv=None) -> int:
                          "the experiment driver's, picking phase 9 (no "
                          "kernel), cell_spots the per-cell path's three "
                          "kernels and phase 10, analysis phase 11's three "
-                         "kernels and phase 11")
+                         "kernels and phase 11, segmentation the per-cell "
+                         "path's three kernels and phase 12")
     args = ap.parse_args(argv)
 
     import torch
@@ -4649,6 +5232,7 @@ def main(argv=None) -> int:
     only = {"gather_blocks": ["gather_cubes"], "dax_path": list(DAX_PATH),
             "experiment": list(PYRAMID_PATH), "picking": [],
             "cell_spots": list(CELL_PATH), "analysis": list(LEGACY_PATH),
+            "segmentation": list(CELL_PATH),
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -4672,6 +5256,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "analysis":
         _analysis_phase(torch, smi, peaks)
+        return 0
+    if args.only == "segmentation":
+        _segmentation_phase(torch, smi, peaks)
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -4897,6 +5484,11 @@ def main(argv=None) -> int:
     # ---- 11. polymer post-analysis and the rest of ops/ -----------------------
     record["analysis"] = ana = _analysis_phase(torch, smi, peaks)
     ana_launches = ana["launches"]
+    torch.cuda.empty_cache()
+
+    # ---- 12. segmentation ----------------------------------------------------
+    record["segmentation"] = seg = _segmentation_phase(torch, smi, peaks)
+    seg_launches = seg["launches"]
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -4917,6 +5509,7 @@ def main(argv=None) -> int:
          "experiment_launches": exp_launches["lm_fit"],
          "cell_spots_launches": cell_launches["lm_fit"],
          "analysis_launches": ana_launches["lm_fit"],
+         "segmentation_launches": seg_launches["lm_fit"],
          "shapes": {k: {f: v[f] for f in ("spots", "px", "iters", "ms",
                                           "plain_ms", "bound_ms",
                                           "max_abs_err")}
@@ -4935,6 +5528,7 @@ def main(argv=None) -> int:
          "dax_path_launches": dax_launches["seed_classify"],
          "cell_spots_launches": cell_launches["seed_classify"],
          "analysis_launches": ana_launches["seed_classify"],
+         "segmentation_launches": seg_launches["seed_classify"],
          "cell_crop": {k: cell_kernels["seed_classify"][k]
                        for k in ("shape", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "max_abs_err")}},
@@ -4968,6 +5562,7 @@ def main(argv=None) -> int:
          "experiment_launches": exp_launches["gather_cubes"],
          "cell_spots_launches": cell_launches["gather_cubes"],
          "analysis_launches": ana_launches["gather_cubes"],
+         "segmentation_launches": seg_launches["gather_cubes"],
          "entries": {"ball": {**gather["ball"],
                               "cell_crop": cell_kernels["gather_cubes"],
                               **{f"analysis {k}": v for k, v in

@@ -7,9 +7,12 @@ the prepared reference spectra; a ``DNAMerfishDecoder``'s state is its
 codebook tables and pixel sizes.  :func:`pipeline_from_arrays` and
 :func:`decoder_from_arrays` rebuild the port's objects from those arrays
 as NumPy (e.g. ``np.asarray`` of the JAX package's attributes), so the two
-packages compute the same thing.  The one learned model, the cell-type
-classifier, crosses over by :func:`classifier_from_arrays` from a fitted
-scikit-learn ``MLPClassifier``'s ``coefs_`` and ``intercepts_``.
+packages compute the same thing.  The learned models cross over too: the
+cell-type classifier by :func:`classifier_from_arrays` from a fitted
+scikit-learn ``MLPClassifier``'s ``coefs_`` and ``intercepts_``, the
+segmentation UNet by :func:`unet_from_params` and cellpose's CPnet by
+:func:`cpnet_from_params`, each from the JAX package's parameter pytree
+(nested dicts and lists of NumPy arrays).
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ import torch
 from .analysis.population import CellTypeClassifier
 from .config import config_from_dict
 from .decode.dna_decoder import DNAMerfishDecoder
+from .device import resolve_device
 from .pipeline.fov import FovPipeline
+from .segmentation.cellpose_net import CPnet, convert_cellpose_state_dict
+from .segmentation.learned import UNet3D, load_weights_from
 
 #: structural keys (small integer arrays) and the optional state arrays
 STRUCTURE_KEYS = ("image_shape", "drift_idx", "fit_idx")
@@ -114,3 +120,75 @@ def classifier_from_arrays(coefs, intercepts, classes, norm,
     clf.classes_ = np.asarray(classes)
     clf._norm = tuple(np.asarray(a, np.float64) for a in norm)
     return clf
+
+
+def _flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A pytree of dicts and lists -> {``jax.tree_util.keystr`` path:
+    NumPy leaf}."""
+    if isinstance(tree, dict):
+        items = ((f"['{k}']", v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((f"[{i}]", v) for i, v in enumerate(tree))
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_flatten_tree(v, prefix + k))
+    return out
+
+
+def unet_from_params(params, device=None) -> UNet3D:
+    """The port's ``UNet3D`` holding the JAX package's
+    ``init_unet_params`` / ``fit_unet`` pytree (``{"enc": [...], "dec":
+    [...], "head": ...}``, convolution weights ZXYIO); its width, depth
+    and input channels come from the shapes."""
+    w = np.asarray(params["enc"][0]["a"]["w"])
+    like = UNet3D(in_channels=w.shape[3], base=w.shape[4],
+                  levels=len(params["enc"]))
+    return load_weights_from(_flatten_tree(params), like).to(
+        resolve_device(device))
+
+
+def _cellpose_keys(tree, prefix: str) -> Dict[str, np.ndarray]:
+    """One JAX ``batchconv`` / ``batchconv0`` entry (``bn``, ``conv`` and,
+    for a style batchconv, ``full``) -> cellpose state_dict entries."""
+    bn, conv = tree["bn"], tree["conv"]
+    conv_at = "1" if prefix.endswith(".proj") else "2"
+    body = prefix + (".conv" if "full" in tree else "")
+    out = {f"{body}.0.weight": bn["gamma"], f"{body}.0.bias": bn["beta"],
+           f"{body}.0.running_mean": bn["mean"],
+           f"{body}.0.running_var": bn["var"],
+           f"{body}.{conv_at}.weight":
+               np.transpose(np.asarray(conv["w"]), (3, 2, 0, 1)),
+           f"{body}.{conv_at}.bias": conv["b"]}
+    if "full" in tree:
+        out[f"{prefix}.full.weight"] = np.transpose(
+            np.asarray(tree["full"]["w"]))
+        out[f"{prefix}.full.bias"] = tree["full"]["b"]
+    return out
+
+
+def cpnet_from_params(params, device=None) -> CPnet:
+    """The port's ``CPnet`` holding the JAX package's ``cpnet_apply``
+    pytree (``convert_cellpose_state_dict``'s output: HWIO convolutions,
+    (in, out) style Linears, BatchNorm as gamma / beta / mean / var); its
+    nbase, outputs and kernel size come from the shapes."""
+    down, up = params["down"], params["up"]
+    w0 = np.asarray(down[0]["conv"][0]["conv"]["w"])
+    nbase = [w0.shape[2]] + [int(np.shape(d["conv"][0]["conv"]["w"])[3])
+                             for d in down]
+    nout = int(np.shape(params["output"]["conv"]["w"])[3])
+    sd = {}
+    for n, lvl in enumerate(down):
+        pre = f"downsample.down.res_down_{n}"
+        sd.update(_cellpose_keys(lvl["proj"], f"{pre}.proj"))
+        for t, bc in enumerate(lvl["conv"]):
+            sd.update(_cellpose_keys(bc, f"{pre}.conv.conv_{t}"))
+    for n, lvl in enumerate(up):
+        pre = f"upsample.up.res_up_{n}"
+        sd.update(_cellpose_keys(lvl["proj"], f"{pre}.proj"))
+        for t, bc in enumerate(lvl["conv"]):
+            sd.update(_cellpose_keys(bc, f"{pre}.conv.conv_{t}"))
+    sd.update(_cellpose_keys(params["output"], "output"))
+    return convert_cellpose_state_dict(sd, nbase=nbase, nout=nout,
+                                       sz=w0.shape[0], device=device)

@@ -101,6 +101,32 @@ def full_f32_matmul():
             flags.allow_tf32 = prev
 
 
+@contextmanager
+def full_f32_conv():
+    """Run float32 cuDNN convolutions, and matrix products, in full
+    float32 inside the block: :func:`full_f32_matmul`, and the same for
+    cuDNN, whose ``allow_tf32`` is True by default."""
+    flags = torch.backends.cudnn
+    try:
+        prev = flags.allow_tf32
+    except RuntimeError:
+        prev = None
+    with full_f32_matmul():
+        if prev is None:
+            prev_precision = flags.conv.fp32_precision
+            flags.conv.fp32_precision = "ieee"
+            try:
+                yield
+            finally:
+                flags.conv.fp32_precision = prev_precision
+        else:
+            flags.allow_tf32 = False
+            try:
+                yield
+            finally:
+                flags.allow_tf32 = prev
+
+
 def _pad_axis(im: torch.Tensor, axis: int, lo: int, hi: int,
               mode: str, fill: float = 0.0) -> torch.Tensor:
     """Pad `im` along `axis` by (lo, hi) with scipy boundary `mode`
