@@ -145,10 +145,27 @@ Phases, each of which raises (exit code != 0) on a failed check:
    ``unet_apply`` equal to the CPU's at atol 1e-4); cellpose's CPnet at
    its 'nuclei' geometry with seeded random weights through
    ``cellpose_flows_3d`` and ``segment_cells_cellpose`` (each view timed,
-   the f32 rate of its convolutions, one slice equal to the CPU's).
+   the f32 rate of its convolutions, one slice equal to the CPU's);
+13. ``parallel/`` under a world-size-1 NCCL group that the phase makes and
+   destroys (_parallel_phase): ``process_rounds(mesh=make_mesh(1))`` over
+   2 rounds of bench.py's scene in 3 channels, equal to ``process_round``
+   per round on every field with the same launches (seed_pyramid, lm_fit
+   and gather_cubes in every round) and bench.py's gate; the spatially
+   sharded round ``sharded_process_round`` on one drifted 60x2048x2048
+   round (drift within 0.1 px, >= 90 % matched, bench.py's gate on its
+   fitted centres, lm_fit launched) and ``sharded_correct_and_seed``'s
+   seeds equal to ``get_seeds`` on the plain route; ``FovPrefetcher``
+   (pinned ring) + ``prefetch_to_device`` over 3 cold .dax movies of phase
+   7's layout, bytes equal to the loader's, s/file and the upload GB/s
+   pinned and pageable beside PR 10's reading;
+14. ``library/`` on the host, no kernel (_library_phase): the native
+   seqint built with g++, its word-17 k-mers and a dense word-12 count
+   table of a 10 Mb seeded sequence equal to the NumPy path's,
+   ``ProbeDesigner`` on 4 regions timed.
 
-The last three lines are a JSON object describing each kernel, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.  A fuller
+The script's whole time, then the last three lines: a JSON object
+describing each kernel, the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.  A fuller
 record goes to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds one
 slice-1 round under torch.profiler (device time by kernel, device busy
 share).  ``--only seed_classify``, ``--only seed_pyramid``, ``--only
@@ -164,7 +181,12 @@ experiment`` builds the three kernels of phase 8 and runs that phase alone;
 on planted groups); ``--only cell_spots`` builds the per-cell path's three
 kernels and runs phase 10 alone; ``--only analysis`` builds seed_classify,
 lm_fit and gather_cubes and runs phase 11 alone; ``--only segmentation``
-builds the same three and runs phase 12 alone.
+builds the same three and runs phase 12 alone; ``--only parallel`` builds
+slice 1's three kernels and runs phase 13 alone, ``--only library`` phase
+14 alone (no kernel); ``--only parallel_ranks`` (four cards, not part of
+the one-card run) builds lm_fit and runs phase 13 (b)'s sharded round
+across four cards, one spawned process each under NCCL, against the same
+program on one card.
 """
 
 from __future__ import annotations
@@ -178,6 +200,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -5144,6 +5167,658 @@ def _analysis_phase(torch, smi: str, peaks) -> dict:
     return rec
 
 
+#: the parallel phase: rounds of its data-parallel check, .dax files of its
+#: prefetcher check, the drift planted in its sharded round
+PAR_ROUNDS = 2
+PAR_FILES = 3
+PAR_SHIFT = DAX_SHIFT
+#: PR 10's pageable upload of a 3-channel 60x2048x2048 round (PERF.md §5)
+PR10_UPLOAD = "~0.22 s of a 0.33 s file round (pageable)"
+
+
+def _require_launches(label, counts, names, at_least=1):
+    """Raise unless every kernel in `names` launched `at_least` times."""
+    low = {n: counts[n] for n in names if counts[n] < at_least}
+    if low:
+        raise AssertionError(f"{label}: kernels launched too few times "
+                             f"({low}, need {at_least}): {counts}")
+
+
+def _parallel_phase(torch, smi: str, dev, shape=SHAPE, n_spots=N_SPOTS,
+                    device_type="cuda") -> dict:
+    """Phase 13: ``parallel/`` on one card, under a world-size-1 group that
+    the phase creates (NCCL on the card) and destroys.
+
+    (a) ``FovPipeline.process_rounds(mesh=make_mesh(1))`` over PAR_ROUNDS
+    3-channel rounds of bench.py's scene: every field ``torch.equal`` to
+    ``process_round`` per round, the mesh run's launches equal to the sum
+    of the per-round runs, each of which launches seed_pyramid, lm_fit and
+    gather_cubes; bench.py's gate on each round.  (b)
+    ``parallel.spatial.sharded_process_round`` on one full-width round
+    (spots in channel 0, beads in channel 1, both moved by PAR_SHIFT,
+    vignetted; the reference the undrifted beads, corrected): drift within
+    0.1 px per
+    axis with flag 0, >= 90 % of the planted spots matched within 1 px,
+    bench.py's gate on the fitted centres in the round's own frame, lm_fit
+    launched; ``lm_fit_single`` on one planted spot of its corrected stack
+    launches lm_fit, its centre within 1e-3 px of the plain LM's;
+    ``sharded_correct_and_seed`` on channel 0 gives the seed set and count
+    of ``get_seeds`` on its corrected stack when both take the plain
+    route.  (c) ``FovPrefetcher`` (pinned ring) +
+    ``prefetch_to_device`` over PAR_FILES .dax movies of phase 7's layout
+    (cold reads): every upload equal to the loader's block; s/file, and the
+    pinned and pageable upload GB/s of one block, beside PR 10's reading.
+    """
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.config import (CorrectionConfig,
+                                                 ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.io import (interleave_channels,
+                                             load_dax_channels, write_dax)
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+    from imageanalysis3_tpu_torch.ops.gaussian_fit import (gather_blocks,
+                                                           lm_fit_single,
+                                                           to_natural)
+    from imageanalysis3_tpu_torch.ops.seeding import get_seeds
+    from imageanalysis3_tpu_torch.parallel import (FovPrefetcher, make_mesh,
+                                                   prefetch_to_device)
+    from imageanalysis3_tpu_torch.parallel.spatial import (
+        sharded_correct_and_seed, sharded_process_round)
+    from imageanalysis3_tpu_torch.pipeline import FovPipeline
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    rec = {"seconds": {}, "launches": {}}
+    secs = rec["seconds"]
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    t_phase = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("parallel: a process group already exists")
+    mesh = make_mesh(1, device_type=device_type, store=dist.HashStore(),
+                     rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        if device_type == "cuda" and backend != "nccl":
+            raise AssertionError(f"parallel: backend {backend}, not nccl")
+        rec["backend"] = backend
+
+        # ---- the scene: bench.py's spots, 3 channels a round -------------
+        rng = np.random.default_rng(130)
+        truth = syn.sample_spot_params(shape, n_spots, rng,
+                                       min_separation=8.0,
+                                       height_range=(400.0, 3000.0),
+                                       sigma_jitter=0.0)
+        base = syn.render_spots(shape, truth["centers"], truth["heights"],
+                                background=truth["background"], device=dev)
+        prof = torch.as_tensor(syn.illumination_profile(
+            shape[1:], falloff=0.35).astype(np.float32), device=dev)
+        rounds = torch.stack([torch.stack([
+            syn.noisy_uint16(base, seed=1300 + 10 * r + c,
+                             illumination=prof) for c in range(3)])
+            for r in range(PAR_ROUNDS)])
+        ref_raw = torch.stack([syn.noisy_uint16(base, seed=1390 + c,
+                                                illumination=prof)
+                               for c in range(3)])
+        del base
+        cfg = ExperimentConfig(
+            image_size=shape, correction=CorrectionConfig(),
+            seed=SeedConfig(th_seed=TH_SEED, max_num_seeds=2048),
+            fit=FitConfig())
+        pipe = FovPipeline(cfg, n_channels=3, drift_channel_index=2,
+                           fit_channel_indices=(0, 1, 2),
+                           illumination=torch.stack([prof] * 3).cpu().numpy(),
+                           image_shape=shape, device=dev)
+        ref = pipe.prepare_reference(pipe.correct_reference(ref_raw))
+        pipe.process_round(rounds[0], ref)                      # warm
+
+        # ---- (a) the data-parallel rounds --------------------------------
+        singles = []
+        per_round = []
+        for r in range(PAR_ROUNDS):
+            reset_kernel_launches()
+            singles.append(timed(f"process_round_{r}",
+                                 lambda: pipe.process_round(rounds[r], ref)))
+            per_round.append(kernel_launches())
+            _require_launches(f"parallel: process_round {r}", per_round[-1],
+                              PYRAMID_PATH)
+            _check_accuracy(f"parallel round {r}", singles[-1],
+                            truth["centers"])
+        reset_kernel_launches()
+        many = timed("process_rounds_mesh",
+                     lambda: pipe.process_rounds(rounds, ref, mesh=mesh))
+        rec["launches"]["process_rounds_mesh"] = counts = kernel_launches()
+        want = {k: sum(c[k] for c in per_round) for k in counts}
+        if counts != want:
+            raise AssertionError(f"parallel: process_rounds(mesh) launches "
+                                 f"{counts}, the rounds' sum {want}")
+        for r, one in enumerate(singles):
+            for f in one._fields:
+                if not torch.equal(getattr(many, f)[r], getattr(one, f)):
+                    raise AssertionError(f"parallel: process_rounds(mesh) "
+                                         f"round {r} {f} differs from "
+                                         f"process_round's")
+        rec["launches"]["process_round"] = per_round
+        del many, singles, rounds, ref, ref_raw, pipe
+        print(f"parallel (a): process_rounds(mesh) over {PAR_ROUNDS} "
+              f"rounds x 3 channels {secs['process_rounds_mesh']:.4f} s "
+              f"(process_round {[round(secs[f'process_round_{r}'], 4) for r in range(PAR_ROUNDS)]} s), "
+              f"equal on every field, launches {counts}  [{smi}]")
+
+        # ---- (b) the spatially sharded round -----------------------------
+        d = np.asarray(PAR_SHIFT)
+        truth, ims, ref_im, kw = _sharded_scene(torch, dev, shape, n_spots)
+        sharded_process_round(ims, ref_im, mesh, **kw)            # warm
+        reset_kernel_launches()
+        corrected, spots, valid, drift, dflag = timed(
+            "sharded_process_round",
+            lambda: sharded_process_round(ims, ref_im, mesh, **kw))
+        rec["launches"]["sharded_process_round"] = counts = kernel_launches()
+        _require_launches("parallel: sharded_process_round", counts,
+                          ("lm_fit",), at_least=2)
+        drift_np = drift.cpu().numpy()
+        d_err = np.abs(drift_np + d)
+        if not (d_err <= 0.1).all() or int(dflag) != 0:
+            raise AssertionError(f"parallel: sharded drift {drift_np} "
+                                 f"(planted {-d}), flag {int(dflag)}")
+        got = spots[0][valid[0]][:, 1:4]
+        errs, n_m = _matched_errors(torch, got, truth["centers"])
+        if n_m < 0.9 * len(truth["centers"]):
+            raise AssertionError(f"parallel: sharded round matched {n_m} of "
+                                 f"{len(truth['centers'])}")
+        # the fitted centres in the round's own frame: the fit's accuracy,
+        # apart from the drift's
+        own = types.SimpleNamespace(
+            spots=spots - torch.cat([torch.zeros(1, device=dev), drift,
+                                     torch.zeros(7, device=dev)]),
+            valid=valid, drift=drift, drift_flag=dflag)
+        med, n_valid = _check_accuracy("parallel sharded round (own frame)",
+                                       own, truth["centers"] + d)
+        rec["sharded"] = {"drift": drift_np.tolist(),
+                          "drift_err": d_err.tolist(), "matched": n_m,
+                          "median_err_ref_frame_px": float(np.median(errs)),
+                          "median_centroid_err_px": med, "n_valid": n_valid}
+
+        # lm_fit_single: one planted spot, a batch of one through the
+        # kernel, against the plain LM on the same block
+        seed = torch.as_tensor(np.round(truth["centers"][0] + d),
+                               dtype=torch.float32, device=dev)
+        px, co, mk = gather_blocks(corrected[0], seed[None], 5)
+        reset_kernel_launches()
+        one_args = (px[0], co[0], mk[0], seed, 1.0, 0.5, 4.0, 1.5)
+        p_card, e_card = lm_fit_single(*one_args)
+        rec["launches"]["lm_fit_single"] = counts = kernel_launches()
+        _require_launches("parallel: lm_fit_single", counts, ("lm_fit",))
+        single_launches = counts["lm_fit"]
+        p_cpu, e_cpu = lm_fit_single(*(t.cpu() if torch.is_tensor(t) else t
+                                       for t in one_args))
+        delta1 = torch.ones(1)
+        c_card = to_natural(p_card[None].cpu(), seed[None].cpu(), delta1,
+                            0.5, 4.0, e_card[None].cpu())[0, 1:4]
+        c_cpu = to_natural(p_cpu[None], seed[None].cpu(), delta1, 0.5, 4.0,
+                           e_cpu[None])[0, 1:4]
+        single_err = float((c_card - c_cpu).abs().max())
+        if not single_err <= 1e-3:
+            raise AssertionError(f"parallel: lm_fit_single's centre "
+                                 f"{c_card.tolist()} on the card, "
+                                 f"{c_cpu.tolist()} plain")
+        rec["sharded"]["lm_fit_single_err_px"] = single_err
+        del corrected, spots, valid, got, own, px, co, mk
+
+        reset_kernel_launches()
+        corr0, seeds = timed("sharded_correct_and_seed",
+                             lambda: sharded_correct_and_seed(
+                                 ims[0], mesh, illumination=kw[
+                                     "illumination"][0],
+                                 th_seed=TH_SEED, max_num_seeds=2048))
+        plain = timed("get_seeds_plain", lambda: get_seeds(
+            corr0, max_num_seeds=2048, th_seed=TH_SEED, pyramid_bg=False,
+            slab_x=1000))
+        rec["launches"]["seeding_plain"] = counts = kernel_launches()
+        if any(counts.values()):
+            raise AssertionError(f"parallel: the plain seeding routes "
+                                 f"launched kernels: {counts}")
+
+        def coord_set(s):
+            return {tuple(c) for c in s.coords[s.valid].cpu().tolist()}
+
+        a, b = coord_set(seeds), coord_set(plain)
+        if a != b or int(seeds.count) != int(plain.count):
+            raise AssertionError(f"parallel: sharded seeds {len(a)} "
+                                 f"(count {int(seeds.count)}) against "
+                                 f"get_seeds {len(b)} (count "
+                                 f"{int(plain.count)}); {len(a ^ b)} differ")
+        rec["sharded"]["seeds"] = len(a)
+        del corr0, ims, ref_im
+        print(f"parallel (b): sharded_process_round {shape} "
+              f"{secs['sharded_process_round']:.4f} s, drift "
+              f"{drift_np.round(4).tolist()} (planted {(-d).tolist()}), "
+              f"{n_m} of {len(truth['centers'])} matched, median "
+              f"{float(np.median(errs)):.5f} px in the reference frame, "
+              f"{med:.5f} px in its own; launches "
+              f"{rec['launches']['sharded_process_round']}; "
+              f"sharded_correct_and_seed {secs['sharded_correct_and_seed']:.4f} "
+              f"s, {len(a)} seeds equal to get_seeds' plain route "
+              f"({secs['get_seeds_plain']:.4f} s); lm_fit_single launches "
+              f"{single_launches}, centre within {single_err:.3g} px of "
+              f"the plain LM  [{smi}]")
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("parallel: the group was not destroyed")
+
+    # ---- (c) the prefetcher over .dax movies -----------------------------
+    chans, n_z = list(DAX_CHANNELS), shape[0]
+    movie_frames = n_z * len(chans) + 2 * DAX_BUFFER
+    movie_bytes = movie_frames * int(np.prod(shape[1:])) * 2
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < (PAR_FILES + 1) * movie_bytes:
+        raise AssertionError(f"parallel: {free / 1e9:.2f} GB free under "
+                             f"{root}, need "
+                             f"{(PAR_FILES + 1) * movie_bytes / 1e9:.2f}")
+    tmp = tempfile.mkdtemp(prefix="prefetch_", dir=root)
+    try:
+        paths = []
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(134)
+        t0 = time.perf_counter()
+        for k in range(PAR_FILES):
+            movie = torch.randint(0, 65535, (movie_frames,) + shape[1:],
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32).to(torch.uint16)
+            path = os.path.join(tmp, f"Conv_zscan_{k:02d}.dax")
+            write_dax(path, movie.cpu().numpy())
+            with open(path, "rb+") as fh:
+                os.fsync(fh.fileno())
+            paths.append(path)
+            del movie
+        secs["write_movies"] = time.perf_counter() - t0
+        for p in paths:
+            _cold(p)
+        kw = dict(n_z=n_z, buffer_frames=DAX_BUFFER)
+        got, item_s = [], []
+        pf = FovPrefetcher(paths, chans, depth=2,
+                           pin_memory=(dev.type == "cuda"), **kw)
+        sync()
+        t0 = t_item = time.perf_counter()
+        for name, x in prefetch_to_device(pf, device=dev):
+            got.append((name, x))
+            now = time.perf_counter()
+            item_s.append(now - t_item)
+            t_item = now
+        sync()
+        secs["prefetch_total"] = time.perf_counter() - t0
+        block_bytes = got[0][1].numel() * 2
+        for path, (name, x) in zip(paths, got):
+            host = load_dax_channels(path, chans, chans, **kw)
+            if name != path or not torch.equal(x.cpu(),
+                                               torch.from_numpy(host)):
+                raise AssertionError(f"parallel: prefetched {name} differs "
+                                     f"from the loader's block")
+        if len(got) != PAR_FILES:
+            raise AssertionError(f"parallel: {len(got)} of {PAR_FILES} "
+                                 f"files prefetched")
+        del got, x
+
+        # the upload alone: one block, pinned and pageable, CUDA events
+        host = load_dax_channels(paths[0], chans, chans, **kw)
+        pinned = timed("pinned_alloc", lambda: torch.empty(
+            host.shape, dtype=torch.uint16, pin_memory=(dev.type == "cuda")))
+        pinned.numpy()[...] = host
+        pageable = torch.from_numpy(host)
+        up = {}
+        for label, src in (("pinned", pinned), ("pageable", pageable),
+                           ("pinned_2", pinned), ("pageable_2", pageable)):
+            sync()
+            t0 = time.perf_counter()
+            y = src.to(dev, non_blocking=True)
+            sync()
+            up[label] = time.perf_counter() - t0
+            del y
+        rec["upload_s"] = up
+        rec["upload_gb_s"] = {k: block_bytes / v / 1e9 for k, v in up.items()}
+        rec["prefetch_s_per_file"] = item_s
+        rec["block_bytes"] = block_bytes
+        print(f"parallel (c): FovPrefetcher (pinned ring, depth 2) + "
+              f"prefetch_to_device over {PAR_FILES} cold .dax files "
+              f"({movie_bytes / 1e9:.2f} GB each, {block_bytes / 1e9:.3f} "
+              f"GB uploaded each): {secs['prefetch_total']:.4f} s, per file "
+              f"{[round(t, 4) for t in item_s]} s, bytes equal to the "
+              f"loader's; one block's upload pinned "
+              f"{up['pinned']:.4f} / {up['pinned_2']:.4f} s "
+              f"({rec['upload_gb_s']['pinned_2']:.2f} GB/s), pageable "
+              f"{up['pageable']:.4f} / {up['pageable_2']:.4f} s "
+              f"({rec['upload_gb_s']['pageable_2']:.2f} GB/s); PR 10: "
+              f"{PR10_UPLOAD}; one pinned block allocated in "
+              f"{secs['pinned_alloc']:.4f} s; movies written in "
+              f"{secs['write_movies']:.2f} s  [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["total_launches"] = {
+        k: sum(c[k] for c in (rec["launches"]["process_rounds_mesh"],
+                              rec["launches"]["sharded_process_round"]))
+        for k in PYRAMID_PATH}
+    print(f"parallel: phase {rec['phase_s']:.2f} s; steps "
+          f"{ {k: round(v, 4) for k, v in secs.items()} } s  [{smi}]")
+    return rec
+
+
+#: ranks of the multi-card check (``--only parallel_ranks``)
+PAR_RANKS = 4
+
+
+def _sharded_scene(torch, dev, shape=SHAPE, n_spots=N_SPOTS):
+    """Phase 13 (b)'s round: spots (channel 0) and beads (channel 1) moved
+    by PAR_SHIFT under the vignette, the corrected undrifted beads as the
+    reference; the same tensors from the same seeds on every card."""
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.ops.corrections import correct_channel_stack
+    rng = np.random.default_rng(131)
+    truth = syn.sample_spot_params(shape, n_spots, rng, min_separation=8.0,
+                                   height_range=(400.0, 3000.0),
+                                   sigma_jitter=0.0)
+    beads = syn.sample_spot_params(shape, 500, rng, min_separation=14.0,
+                                   height_range=(2000.0, 5000.0),
+                                   sigma_jitter=0.0, background=120.0)
+    d = np.asarray(PAR_SHIFT)
+    prof = torch.as_tensor(syn.illumination_profile(
+        shape[1:], falloff=0.35).astype(np.float32), device=dev)
+    ims = torch.stack([
+        syn.noisy_uint16(syn.render_spots(shape, truth["centers"] + d,
+                                          truth["heights"], background=150.0,
+                                          device=dev), seed=1331,
+                         illumination=prof),
+        syn.noisy_uint16(syn.render_spots(shape, beads["centers"] + d,
+                                          beads["heights"], background=120.0,
+                                          device=dev), seed=1332,
+                         illumination=prof)])
+    ref_im = correct_channel_stack(
+        syn.noisy_uint16(syn.render_spots(shape, beads["centers"],
+                                          beads["heights"], background=120.0,
+                                          device=dev), seed=1333,
+                         illumination=prof)[None],
+        illumination_profile=prof[None], do_bleedthrough=False)[0]
+    kw = dict(drift_channel_index=1, fit_channel_indices=(0,),
+              seed_thresholds=[TH_SEED, TH_SEED],
+              illumination=torch.stack([prof, prof]), max_num_seeds=2048)
+    return truth, ims, ref_im, kw
+
+
+def _rank_parallel(rank: int, world: int, port: int, results) -> None:
+    """One rank of ``--only parallel_ranks``: the sharded round over
+    `world` cards under NCCL, rank 0 also on a one-card mesh."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                                  reset_kernel_launches)
+        from imageanalysis3_tpu_torch.parallel import make_mesh
+        from imageanalysis3_tpu_torch.parallel.mesh import gather_cat
+        from imageanalysis3_tpu_torch.parallel.spatial import (
+            halo_exchange, sharded_process_round)
+        timeout = datetime.timedelta(seconds=120)
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", rank)
+        store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                              timeout=timeout)
+        mesh = make_mesh(device_type="cuda", store=store, rank=rank,
+                         world_size=world, timeout=timeout)
+        one = make_mesh(1, device_type="cuda", timeout=timeout)
+        out = {"backend": dist.get_backend(), "seconds": {}}
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        x = torch.randn((4, 64 * world, 8), generator=gen, device=dev)
+        tiles = gather_cat(halo_exchange(x[:, rank * 64:(rank + 1) * 64]
+                                         .contiguous(), 3, mesh), mesh, dim=1)
+        pad = np.pad(x.cpu().numpy(), ((0, 0), (3, 3), (0, 0)),
+                     mode="symmetric")
+        want = np.concatenate([pad[:, r * 64:(r + 1) * 64 + 6]
+                               for r in range(world)], axis=1)
+        out["halo_equal"] = bool(np.array_equal(tiles.cpu().numpy(), want))
+
+        truth, ims, ref_im, kw = _sharded_scene(torch, dev)
+
+        def run(m, label):
+            sharded_process_round(ims, ref_im, m, **kw)          # warm
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            res = sharded_process_round(ims, ref_im, m, **kw)
+            torch.cuda.synchronize()
+            out["seconds"][label] = time.perf_counter() - t0
+            out[f"launches_{label}"] = kernel_launches()
+            return res
+
+        dist.barrier()
+        res_n = run(mesh, f"sharded_{world}")
+        if one is not None:
+            res_1 = run(one, "sharded_1")
+            # the corrected stacks stay on the card: their comparison goes
+            # back, the spot tables and drifts go back whole
+            out.update(truth=truth["centers"], shift=np.asarray(PAR_SHIFT),
+                       corrected_close=bool(torch.allclose(
+                           res_n[0], res_1[0], rtol=2e-5, atol=2e-2)),
+                       corrected_max_diff=float(
+                           (res_n[0] - res_1[0]).abs().max()),
+                       res_n=[t.cpu().numpy() for t in res_n[1:]],
+                       res_1=[t.cpu().numpy() for t in res_1[1:]])
+        dist.barrier()
+        results.put((rank, "ok", out if rank == 0 else {}))
+    except BaseException:       # noqa: BLE001 -- reported to the parent
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _parallel_ranks_phase(torch, smi: str) -> dict:
+    """``--only parallel_ranks``: the spatially sharded round across
+    PAR_RANKS cards (one spawned process each, NCCL over a TCP store on
+    localhost) against the same program on one card, rank 0's, in one
+    call.  Gates: each rank's halo-extended tile equals the symmetric pad
+    exactly; tests/test_spatial.py's one-device tolerances (corrected
+    rtol 2e-5 / atol 2e-2, drift atol 5e-3, the same number of spots,
+    each within 0.05 px); phase 13 (b)'s drift, match and accuracy gates
+    on the sharded result; lm_fit launched on every rank's chunk."""
+    import multiprocessing as mp
+    import socket
+
+    n = torch.cuda.device_count()
+    if n < PAR_RANKS:
+        raise AssertionError(f"parallel_ranks: {n} cards, need {PAR_RANKS}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_parallel,
+                         args=(r, PAR_RANKS, port, results))
+             for r in range(PAR_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        t0 = time.perf_counter()
+        while len(got) < PAR_RANKS:
+            left = 600 - (time.perf_counter() - t0)
+            rank, status, payload = results.get(timeout=max(1.0, left))
+            if status != "ok":
+                raise AssertionError(f"parallel_ranks: rank {rank} "
+                                     f"failed:\n{payload}")
+            got[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    out = got[0]
+    if out["backend"] != "nccl" or not out["halo_equal"]:
+        raise AssertionError(f"parallel_ranks: backend {out['backend']}, "
+                             f"halo equal {out['halo_equal']}")
+    (sn, vn, dn, fn), (s1, v1, d1, _) = out["res_n"], out["res_1"]
+    if not out["corrected_close"]:
+        raise AssertionError(f"parallel_ranks: corrected stacks differ by "
+                             f"up to {out['corrected_max_diff']}")
+    np.testing.assert_allclose(dn, d1, atol=5e-3)
+    gn, g1 = sn[0][vn[0]][:, 1:4], s1[0][v1[0]][:, 1:4]
+    if len(gn) != len(g1):
+        raise AssertionError(f"parallel_ranks: {len(gn)} spots on "
+                             f"{PAR_RANKS} cards, {len(g1)} on one")
+    far = max(np.linalg.norm(gn - c, axis=1).min() for c in g1)
+    if far >= 0.05:
+        raise AssertionError(f"parallel_ranks: a spot moved {far} px")
+    d_err = np.abs(dn + out["shift"])
+    if not (d_err <= 0.1).all() or int(fn) != 0:
+        raise AssertionError(f"parallel_ranks: drift {dn}, flag {int(fn)}")
+    errs, n_m = _matched_errors(torch, torch.as_tensor(gn),
+                                out["truth"])
+    if n_m < 0.9 * len(out["truth"]):
+        raise AssertionError(f"parallel_ranks: matched {n_m}")
+    own = types.SimpleNamespace(
+        spots=torch.as_tensor(sn - np.concatenate([[0.0], dn, [0.0] * 7]
+                                                  ).astype(np.float32)),
+        valid=torch.as_tensor(vn), drift=torch.as_tensor(dn),
+        drift_flag=torch.as_tensor(fn))
+    med, _ = _check_accuracy(f"parallel_ranks {PAR_RANKS} cards", own,
+                             out["truth"] + out["shift"])
+    lm = out[f"launches_sharded_{PAR_RANKS}"]["lm_fit"]
+    if lm < 2:
+        raise AssertionError(f"parallel_ranks: lm_fit launched {lm} times")
+    secs = out["seconds"]
+    print(f"parallel_ranks: sharded_process_round {SHAPE} over "
+          f"{PAR_RANKS} cards (NCCL) {secs[f'sharded_{PAR_RANKS}']:.4f} s "
+          f"against one card {secs['sharded_1']:.4f} s; within the "
+          f"one-device tolerances (corrected max |d| "
+          f"{out['corrected_max_diff']:.4g}, drift max |d| "
+          f"{float(np.abs(dn - d1).max()):.4g}, {len(gn)} spots, farthest "
+          f"{far:.4g} px); drift {np.round(dn, 4).tolist()}, {n_m} "
+          f"matched, own-frame median {med:.5f} px; rank 0's launches "
+          f"{out[f'launches_sharded_{PAR_RANKS}']}; halos exact  [{smi}]")
+    return {"seconds": secs, "far_px": float(far), "matched": n_m,
+            "median_centroid_err_px": med}
+
+
+#: phase 14's synthetic genome and its probe regions
+LIB_GENOME_BP = 10_000_000
+LIB_REGIONS = 4
+LIB_REGION_BP = 3000
+
+
+def _library_phase(smi: str) -> dict:
+    """Phase 14: ``library/`` on the host, no kernel.  The native seqint is
+    built with g++; on a seeded LIB_GENOME_BP-base synthetic sequence its
+    ``seq_to_kmer_ints`` (word 17, both strands) and a dense word-12
+    ``KmerCountTable`` (33.5 MB) equal the NumPy path's; ``ProbeDesigner``
+    designs LIB_REGIONS regions against the word-12 genome map, timed."""
+    from imageanalysis3_tpu_torch import _build
+    from imageanalysis3_tpu_torch.library import (KmerCountTable, MapSpec,
+                                                  ProbeDesigner, seqint)
+
+    rec = {"seconds": {}}
+    secs = rec["seconds"]
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    t_phase = time.perf_counter()
+    if not timed("build", seqint.native_available):
+        raise AssertionError("library: the native seqint did not build")
+    rec["library"] = str(_build.native_library_path(
+        "seqint", seqint._SRC, seqint.GXX_FLAGS))
+    rng = np.random.default_rng(140)
+    genome = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, LIB_GENOME_BP)].tobytes()
+    fw, rc = timed("kmers17_native",
+                   lambda: seqint.seq_to_kmer_ints(genome, 17))
+    fw_np, rc_np = timed("kmers17_numpy",
+                         lambda: seqint._kmers_numpy(genome, 17, True))
+    if not (np.array_equal(fw, fw_np) and np.array_equal(rc, rc_np)):
+        raise AssertionError("library: native and NumPy word-17 k-mers "
+                             "differ")
+    del fw, rc, fw_np, rc_np
+    table = KmerCountTable(12, sparse=False)
+    timed("table12_native", lambda: table.consume(genome))
+
+    def numpy_table():
+        t = np.zeros(4 ** 12, np.uint16)
+        fw12, rc12 = seqint._kmers_numpy(genome, 12, True)
+        seqint._count_dense_numpy(fw12, t)
+        seqint._count_dense_numpy(rc12, t)
+        return t
+
+    want = timed("table12_numpy", numpy_table)
+    if not np.array_equal(table.table, want):
+        raise AssertionError("library: native and NumPy word-12 tables "
+                             "differ")
+    rec["table12_bytes"] = table.table.nbytes
+    rec["table12_nonzero"] = int(np.count_nonzero(table.table))
+    del table, want
+
+    gmap = KmerCountTable(12, sparse=False)
+    timed("genome_map12", lambda: gmap.consume(genome, count_rc=False))
+    text = genome.decode()
+    regions = {f"r{k}": text[1_000_000 * (k + 1):
+                             1_000_000 * (k + 1) + LIB_REGION_BP]
+               for k in range(LIB_REGIONS)}
+    designer = ProbeDesigner(
+        regions, maps={"genome": MapSpec(gmap, two_stranded=True)},
+        pb_len=42, word_size=12, buffer_len=2,
+        check_dic={"gc": (0.25, 0.75), "tm": 55.0,
+                   ("genome", "self_sequences"): 120})
+    cands = timed("designer_reports", designer.compute_reports)
+    kept = timed("designer_check", designer.check_probes)
+    by_region = designer.kept_by_region()
+    rec["designer"] = {"candidates": len(cands), "kept": len(kept),
+                       "per_region": {k: len(v) for k, v in
+                                      by_region.items()}}
+    if min(rec["designer"]["per_region"].values(), default=0) < 10:
+        raise AssertionError(f"library: the designer kept "
+                             f"{rec['designer']['per_region']}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"library: native seqint built in {secs['build']:.3f} s; "
+          f"{LIB_GENOME_BP / 1e6:.0f} Mb: word-17 k-mers native "
+          f"{secs['kmers17_native']:.4f} s / NumPy "
+          f"{secs['kmers17_numpy']:.4f} s, equal; dense word-12 table "
+          f"({rec['table12_bytes'] / 1e6:.1f} MB) native "
+          f"{secs['table12_native']:.4f} s / NumPy "
+          f"{secs['table12_numpy']:.4f} s, equal; ProbeDesigner "
+          f"{LIB_REGIONS} x {LIB_REGION_BP} bp: reports "
+          f"{secs['designer_reports']:.4f} s, check "
+          f"{secs['designer_check']:.4f} s, kept "
+          f"{rec['designer']['per_region']}; phase {rec['phase_s']:.2f} s "
+          f"(host only)  [{smi}]")
+    return rec
+
+
 def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
     """One main-path round under torch.profiler: device time by kernel and
     the device's busy share of the round's wall time."""
@@ -5184,7 +5859,8 @@ def main(argv=None) -> int:
                                        "gather_cubes", "gather_blocks",
                                        "dax_path", "experiment", "picking",
                                        "cell_spots", "analysis",
-                                       "segmentation"],
+                                       "segmentation", "parallel",
+                                       "library", "parallel_ranks"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
@@ -5195,8 +5871,12 @@ def main(argv=None) -> int:
                          "kernel), cell_spots the per-cell path's three "
                          "kernels and phase 10, analysis phase 11's three "
                          "kernels and phase 11, segmentation the per-cell "
-                         "path's three kernels and phase 12")
+                         "path's three kernels and phase 12, parallel "
+                         "slice 1's three kernels and phase 13, library "
+                         "phase 14 (no kernel), parallel_ranks lm_fit and "
+                         "the sharded round across 4 cards (needs 4)")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -5233,6 +5913,8 @@ def main(argv=None) -> int:
             "experiment": list(PYRAMID_PATH), "picking": [],
             "cell_spots": list(CELL_PATH), "analysis": list(LEGACY_PATH),
             "segmentation": list(CELL_PATH),
+            "parallel": list(PYRAMID_PATH), "library": [],
+            "parallel_ranks": ["lm_fit"],
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -5259,6 +5941,15 @@ def main(argv=None) -> int:
         return 0
     if args.only == "segmentation":
         _segmentation_phase(torch, smi, peaks)
+        return 0
+    if args.only == "parallel":
+        _parallel_phase(torch, smi, dev)
+        return 0
+    if args.only == "library":
+        _library_phase(smi)
+        return 0
+    if args.only == "parallel_ranks":
+        _parallel_ranks_phase(torch, smi)
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -5489,6 +6180,15 @@ def main(argv=None) -> int:
     # ---- 12. segmentation ----------------------------------------------------
     record["segmentation"] = seg = _segmentation_phase(torch, smi, peaks)
     seg_launches = seg["launches"]
+    torch.cuda.empty_cache()
+
+    # ---- 13. parallel/ under a world-size-1 NCCL group ---------------------
+    record["parallel"] = par = _parallel_phase(torch, smi, dev)
+    par_launches = par["total_launches"]
+    torch.cuda.empty_cache()
+
+    # ---- 14. library/ on the host ----------------------------------------------
+    record["library"] = _library_phase(smi)
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -5498,7 +6198,8 @@ def main(argv=None) -> int:
          "ms": pyr_ms, "plain_ms": pyr_plain_ms, "bound_ms": pyr_bound[0],
          "bound_by": pyr_bound[1], "library_ms": None,
          "dax_path_launches": dax_launches["seed_pyramid"],
-         "experiment_launches": exp_launches["seed_pyramid"]},
+         "experiment_launches": exp_launches["seed_pyramid"],
+         "parallel_launches": par_launches["seed_pyramid"]},
         {"name": "lm_fit", "route": "cuda",
          "source": "imageanalysis3_tpu_torch/csrc/lm_fit.cu",
          "replaces": "imageanalysis3_tpu/ops/pallas_lm.py:225",
@@ -5510,6 +6211,7 @@ def main(argv=None) -> int:
          "cell_spots_launches": cell_launches["lm_fit"],
          "analysis_launches": ana_launches["lm_fit"],
          "segmentation_launches": seg_launches["lm_fit"],
+         "parallel_launches": par_launches["lm_fit"],
          "shapes": {k: {f: v[f] for f in ("spots", "px", "iters", "ms",
                                           "plain_ms", "bound_ms",
                                           "max_abs_err")}
@@ -5563,6 +6265,7 @@ def main(argv=None) -> int:
          "cell_spots_launches": cell_launches["gather_cubes"],
          "analysis_launches": ana_launches["gather_cubes"],
          "segmentation_launches": seg_launches["gather_cubes"],
+         "parallel_launches": par_launches["gather_cubes"],
          "entries": {"ball": {**gather["ball"],
                               "cell_crop": cell_kernels["gather_cubes"],
                               **{f"analysis {k}": v for k, v in
@@ -5613,6 +6316,8 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
+    record["script_s"] = time.perf_counter() - t_script
+    print(f"chip_smoke: whole script {record['script_s']:.1f} s  [{smi}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

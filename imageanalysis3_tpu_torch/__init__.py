@@ -15,10 +15,15 @@ every kernel runs as its plain PyTorch version.  The package imports
 neither JAX, nor ``imageanalysis3_tpu``, nor pandas.
 """
 
-from .config import (CorrectionConfig, DriftConfig, ExperimentConfig,
+from .config import (ALLOWED_COLORS, CORR_CHANNELS, DEFAULT_IMAGE_SIZE,
+                     DEFAULT_PIXEL_SIZE_NM, DEFAULT_SIGMA_ZXY,
+                     CorrectionConfig, DriftConfig, ExperimentConfig,
                      FitConfig, SeedConfig, config_from_dict)
 from .pipeline import FovPipeline, RoundResult
 
-__all__ = ["CorrectionConfig", "DriftConfig", "ExperimentConfig",
-           "FitConfig", "SeedConfig", "config_from_dict", "FovPipeline",
-           "RoundResult"]
+__version__ = "0.2.0"
+
+__all__ = ["DEFAULT_PIXEL_SIZE_NM", "DEFAULT_SIGMA_ZXY", "DEFAULT_IMAGE_SIZE",
+           "ALLOWED_COLORS", "CORR_CHANNELS", "CorrectionConfig",
+           "DriftConfig", "ExperimentConfig", "FitConfig", "SeedConfig",
+           "config_from_dict", "FovPipeline", "RoundResult"]

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -108,3 +109,42 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build_dir() / f"{name}.so"))
         _loaded[name] = lib
     return lib
+
+
+def native_library_path(name: str, src: str, flags: Iterable[str]) -> Path:
+    """Where the host library `name`, built with g++ from `src` with
+    `flags`, lives: ``<name>/<hash>/<name>.so`` under the build root, in a
+    0700 directory keyed by a hash of the source and the flags."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(Path(src).read_bytes())
+    d = _build_root() / name / h.hexdigest()[:16]
+    os.makedirs(d, mode=0o700, exist_ok=True)
+    return d / f"{name}.so"
+
+
+def load_native_library(name: str, src: str,
+                        flags: Iterable[str]) -> ctypes.CDLL:
+    """Build the host library `name` once (g++ into a private temporary
+    file, made 0700, then renamed into place) and load it.  A library not
+    owned by this user, or writable by anyone else, is refused: it would be
+    loaded with this process's privileges.  Raises ``OSError`` (no
+    source, no compiler, a foreign library or a failed load) or
+    ``CalledProcessError`` (a failed build)."""
+    flags = tuple(flags)
+    path = native_library_path(name, src, flags)
+    if not path.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+        os.close(fd)
+        try:
+            subprocess.run(["g++", *flags, "-o", tmp, str(src)], check=True,
+                           capture_output=True)
+            os.chmod(tmp, 0o700)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    st = os.stat(path)
+    if st.st_uid != os.getuid() or (st.st_mode & 0o022):
+        raise PermissionError(f"{path} is not exclusively user-owned; "
+                              "refusing to load it")
+    return ctypes.CDLL(str(path))

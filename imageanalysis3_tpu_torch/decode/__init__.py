@@ -25,7 +25,8 @@ from .merfish import (Codebook, MerfishDecoder, SpotGroups,
                       select_pairs, tuple_self_scores)
 from .new_decoder import (SpotDecoder, SpotMapper,
                           codebook_dataframe_to_tables)
-from .picker import SpotPicker, batch_pick_spots
+from .picker import (SpotPicker, batch_pick_spots, cdf_scores,
+                     prepare_score_metrics_by_chr)
 from .picking import (EMPickResult, assign_spots_to_chromosomes,
                       build_candidate_table, dynamic_pick_spots,
                       em_pick_spots, em_pick_spots_exclusive,
@@ -55,7 +56,8 @@ __all__ = [
     "init_homolog_centers", "Codebook", "MerfishDecoder", "SpotGroups",
     "build_codebook", "complete_tuples", "find_neighbors", "select_pairs",
     "codebook_dataframe_to_tables", "SpotDecoder", "SpotMapper",
-    "SpotPicker", "batch_pick_spots",
+    "SpotPicker", "batch_pick_spots", "cdf_scores",
+    "prepare_score_metrics_by_chr",
     "find_seeding_groups", "find_unused_spots", "collect_invalid_pairs",
     "generate_random_invalid_pairs", "group_reference_metrics",
     "pair_metrics", "tuple_self_scores", "normalize_intensities_by_channel",

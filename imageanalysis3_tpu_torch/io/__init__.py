@@ -21,8 +21,11 @@ from .microscope import (load_position_file, microscope_correct_image,
 from .native_loader import (load_dax_channels, native_loader_available,
                             split_channels_native)
 from .profiles_io import load_correction_profile, save_correction_profile
-from .spots import (PIXEL_COLUMNS, SPOT3D_COLUMNS, load_table_hdf5,
-                    save_table_hdf5, spot_groups_to_table, spots_to_table,
+from .spots import (PIXEL_COLUMNS, SPOT3D_COLUMNS, dataframe_to_cand_spots,
+                    dataframe_to_spot_groups, load_dataframe_hdf5,
+                    load_table_hdf5, save_dataframe_hdf5, save_table_hdf5,
+                    spaligner_to_chr_homologs, spot_groups_to_dataframe,
+                    spot_groups_to_table, spots_to_dataframe, spots_to_table,
                     table_to_cand_spots, table_to_spot_groups)
 from .store import (FLAG_CORRECTED, FLAG_EMPTY, FLAG_RAW, AsyncFovWriter,
                     FovStore, store_backend)
@@ -48,4 +51,8 @@ __all__ = [
     "SPOT3D_COLUMNS", "PIXEL_COLUMNS", "spots_to_table",
     "table_to_cand_spots", "spot_groups_to_table", "table_to_spot_groups",
     "save_table_hdf5", "load_table_hdf5",
+    "spots_to_dataframe", "dataframe_to_cand_spots",
+    "spot_groups_to_dataframe", "dataframe_to_spot_groups",
+    "save_dataframe_hdf5", "load_dataframe_hdf5",
+    "spaligner_to_chr_homologs",
 ]

@@ -20,15 +20,13 @@ not a device path.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import subprocess
-import tempfile
 from typing import Optional, Sequence
 
 import numpy as np
 
-from .._build import _build_root
+from .._build import load_native_library, native_library_path
 from .dax import DaxMetadata, channel_start_frames, read_dax, read_inf, \
     split_channels
 
@@ -42,12 +40,7 @@ _lib_tried = False
 def library_path() -> str:
     """Where the compiled loader lives: a 0700 directory keyed by a hash of
     the source and the flags."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    with open(_SRC, "rb") as fh:
-        h.update(fh.read())
-    d = _build_root() / "daxload" / h.hexdigest()[:16]
-    os.makedirs(d, mode=0o700, exist_ok=True)
-    return str(d / "daxload.so")
+    return str(native_library_path("daxload", _SRC, GXX_FLAGS))
 
 
 def _build_lib() -> Optional[ctypes.CDLL]:
@@ -56,20 +49,7 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         return _lib
     _lib_tried = True
     try:
-        path = library_path()
-        if not os.path.exists(path):
-            fd, tmp = tempfile.mkstemp(suffix=".so",
-                                       dir=os.path.dirname(path))
-            os.close(fd)
-            subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, _SRC],
-                           check=True, capture_output=True)
-            os.chmod(tmp, 0o700)
-            os.replace(tmp, path)
-        st = os.stat(path)
-        if st.st_uid != os.getuid() or (st.st_mode & 0o022):
-            raise PermissionError("daxload library not exclusively "
-                                  "user-owned; refusing to load")
-        lib = ctypes.CDLL(path)
+        lib = load_native_library("daxload", _SRC, GXX_FLAGS)
         i64p = ctypes.POINTER(ctypes.c_int64)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.dax_load_channels.restype = ctypes.c_int

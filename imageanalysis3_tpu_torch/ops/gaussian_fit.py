@@ -37,7 +37,8 @@ from .matching import pairwise_distances
 from .seeding import Seeds, get_seeds
 
 __all__ = ["FitResult", "iter_fit_seed_points", "init_params",
-           "gaussian_model", "to_natural", "rebase_center_params",
+           "gaussian_model", "to_natural", "lm_fit_single",
+           "rebase_center_params",
            "ball_offsets", "gather_blocks", "neighbor_lists",
            "ownership_mask", "geometry_jacobian", "find_image_background",
            "fit_fov_image", "get_centers", "select_sparse_centers",
@@ -166,6 +167,31 @@ def _batched_lm(pixels, coords, mask, centers, delta_vec, min_w, max_w,
     return lm_fit_plain(pixels, coords, mask, centers, delta_vec, params0,
                         min_w, max_w, lm_iters=lm_iters,
                         analytic_jac=analytic_jac or backend != "xla")
+
+
+def lm_fit_single(pixels, coords, mask, center_est, delta: float,
+                  min_w: float, max_w: float, init_w: float,
+                  lm_iters: int = 30, params0=None, analytic_jac: bool = True,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fit one spot's pixel block (P,) -> (constrained params (10,), mean
+    |residual|): a batch of one through the batched LM, so a CUDA tensor
+    runs the ``lm_fit`` kernel (the CPU the plain LM with `analytic_jac`).
+    NumPy inputs go to `device` (default the card).  For the JAX package's
+    API; batches of spots belong in one call of the batched fit, not a
+    loop over this."""
+    px = as_tensor(pixels, device).to(torch.float32)
+    dev = px.device
+    as_row = lambda t, dt: torch.as_tensor(t, dtype=dt, device=dev)[None]
+    backend = _lm_backend("auto", dev)
+    delta_vec = torch.full((1,), float(delta), dtype=torch.float32,
+                           device=dev)
+    p0 = None if params0 is None else as_row(params0, torch.float32)
+    params, eps = _batched_lm(px[None], as_row(coords, torch.float32),
+                              as_row(mask, torch.bool),
+                              as_row(center_est, torch.float32), delta_vec,
+                              min_w, max_w, init_w, lm_iters, p0,
+                              analytic_jac, backend)
+    return params[0], eps[0]
 
 
 def rebase_center_params(params: torch.Tensor, center_est: torch.Tensor,

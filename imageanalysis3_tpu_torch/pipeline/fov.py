@@ -267,15 +267,31 @@ class FovPipeline:
         return self.process_round(ims, ref_im)
 
     def process_rounds(self, ims, ref_im, mesh=None) -> RoundResult:
-        """Process (R, C, Z, X, Y) rounds one after another -> a
-        RoundResult whose fields stack the rounds' along a leading axis.
-        The mesh form (rounds data-parallel over cards) is not ported yet
-        (the ROADMAP item "parallel/ as torch.distributed")."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "process_rounds over a mesh is not ported (the ROADMAP item "
-                "\"parallel/ as torch.distributed\")")
+        """Process (R, C, Z, X, Y) rounds -> a RoundResult whose fields
+        stack the rounds' along a leading axis.
+
+        Without a mesh the rounds run one after another.  With a
+        ``parallel.make_mesh`` mesh (one rank a card) they are data-parallel:
+        R is padded to a multiple of the mesh size (with copies of the last
+        round), each rank runs `process_round` on its contiguous block of
+        rounds, and ``all_gather`` assembles every field on every rank, cut
+        back to R rounds -- the reference's mp.Pool fan-out over rounds
+        (classes/field_of_view.py:1128-1142).  Each round's result is its
+        `process_round` result bit for bit.
+        """
         ims = torch.as_tensor(ims, device=self.device)
         ref = torch.as_tensor(ref_im, device=self.device)
-        outs = [self.process_round(im, ref) for im in ims]
-        return RoundResult(*(torch.stack(f) for f in zip(*outs)))
+        if mesh is None:
+            outs = [self.process_round(im, ref) for im in ims]
+            return RoundResult(*(torch.stack(f) for f in zip(*outs)))
+        # here, not at the top: torch.distributed.tensor takes ~1.3 s to
+        # import, which a meshless caller should not pay
+        from ..parallel.mesh import gather_cat
+
+        r = ims.shape[0]
+        per = -(-r // mesh.size())
+        first = mesh.get_local_rank() * per
+        outs = [self.process_round(ims[min(i, r - 1)], ref)
+                for i in range(first, first + per)]
+        return RoundResult(*(gather_cat(torch.stack(f), mesh)[:r]
+                             for f in zip(*outs)))

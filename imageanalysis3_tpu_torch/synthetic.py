@@ -156,6 +156,11 @@ def noisy_uint16(im: torch.Tensor, seed: int, read_noise: float = 2.0,
     return shot.clamp(0, 65535).to(torch.uint16)
 
 
+#: the JAX package's names for the two renderers above
+render_spots_device = render_spots
+noisy_uint16_device = noisy_uint16
+
+
 # ---------------------------------------------------------------------------
 # The end-to-end scene of bench_e2e.py: rounds of 3-channel stacks whose
 # data channels carry the bits of a pair-unique codebook

@@ -311,9 +311,17 @@ def test_process_rounds_matches_jax_and_single_rounds(pipelines):
         one = tp.process_round(torch.from_numpy(ims[r]), t_ref)
         for f in got._fields:
             assert torch.equal(getattr(got, f)[r], getattr(one, f)), f
-    with pytest.raises(NotImplementedError,
-                       match="parallel/ as torch.distributed"):
-        tp.process_rounds(ims, t_ref, mesh=object())
+    # the mesh form on a one-rank gloo group made here: the same rounds
+    import torch.distributed as dist
+    from imageanalysis3_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(device_type="cpu", store=dist.HashStore(), rank=0,
+                     world_size=1)
+    try:
+        on_mesh = tp.process_rounds(ims, t_ref, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    for f in got._fields:
+        assert torch.equal(getattr(on_mesh, f), getattr(got, f)), f
 
 
 def test_dax_processer_defaults_to_cuda(movies, monkeypatch):

@@ -205,6 +205,8 @@ def test_port_imports_without_jax_in_subprocess():
         "filters, gaussian_fit, lm_kernel, seed_kernels, seeding, warp)\n"
         "from imageanalysis3_tpu_torch.decode import (dna_decoder, homolog, "
         "merfish, new_decoder)\n"
+        "from imageanalysis3_tpu_torch import library, parallel\n"
+        "from imageanalysis3_tpu_torch.parallel import spatial\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'imageanalysis3_tpu', 'pandas') "
@@ -215,6 +217,61 @@ def test_port_imports_without_jax_in_subprocess():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+#: every subpackage the port has ported, and the modules whose JAX names
+#: differed (synthetic's device renderers, gaussian_fit's single-spot fit)
+PORTED = ["", "analysis", "decode", "io", "ops", "pipeline", "segmentation",
+          "parallel", "library"]
+RENAMED = ["synthetic", "ops.gaussian_fit"]
+
+
+@pytest.mark.parametrize("sub", PORTED + RENAMED)
+def test_package_exports_every_jax_name(sub):
+    """Every name the JAX package exports, at the top level and in each
+    ported subpackage (its ``__all__``), or defines publicly in a module
+    whose names the port had renamed, exists in the port."""
+    import importlib
+    import inspect
+    name = "." + sub if sub else ""
+    jax_mod = importlib.import_module("imageanalysis3_tpu" + name)
+    port_mod = importlib.import_module("imageanalysis3_tpu_torch" + name)
+    if sub in PORTED:
+        want = set(jax_mod.__all__)
+        assert want <= set(port_mod.__all__)
+    else:
+        want = {n for n, v in vars(jax_mod).items()
+                if not n.startswith("_") and inspect.isfunction(v)
+                and v.__module__ == jax_mod.__name__}
+    missing = sorted(n for n in want if not hasattr(port_mod, n))
+    assert not missing, missing
+    if sub == "":
+        assert port_mod.__version__ == jax_mod.__version__
+        for c in ("DEFAULT_PIXEL_SIZE_NM", "DEFAULT_SIGMA_ZXY",
+                  "DEFAULT_IMAGE_SIZE", "ALLOWED_COLORS", "CORR_CHANNELS"):
+            assert getattr(port_mod, c) == getattr(jax_mod, c), c
+
+
+def test_package_data_lists_every_runtime_source():
+    """A wheel of the tree carries every non-Python source the port opens
+    at run time: the CUDA kernels and both native host libraries match the
+    port's package-data globs (and the JAX package's entry is as it was)."""
+    import fnmatch
+    import tomllib
+    cfg = tomllib.loads((PORT.parent / "pyproject.toml").read_text())
+    data = cfg["tool"]["setuptools"]["package-data"]
+    globs = data["imageanalysis3_tpu_torch"]
+    sources = sorted(
+        str(f.relative_to(PORT)) for f in PORT.rglob("*")
+        if f.is_file() and f.suffix in (".cu", ".cuh", ".cpp", ".c", ".h")
+        and "__pycache__" not in f.parts)
+    unshipped = [s for s in sources
+                 if not any(fnmatch.fnmatch(s, g) for g in globs)]
+    assert not unshipped, unshipped
+    assert "io/native/daxload.cpp" in sources
+    assert "library/native/seqint.cpp" in sources
+    assert len([s for s in sources if s.startswith("csrc/")]) >= 8
+    assert set(data) == {"imageanalysis3_tpu_torch"}
 
 
 def test_pipeline_defaults_to_cuda_and_raises_without_it(monkeypatch):
