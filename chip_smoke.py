@@ -161,7 +161,27 @@ Phases, each of which raises (exit code != 0) on a failed check:
 14. ``library/`` on the host, no kernel (_library_phase): the native
    seqint built with g++, its word-17 k-mers and a dense word-12 count
    table of a 10 Mb seeded sequence equal to the NumPy path's,
-   ``ProbeDesigner`` on 4 regions timed.
+   ``ProbeDesigner`` on 4 regions timed;
+15. the legacy facade (_legacy_phase): one FOV of 2 hyb rounds of
+   3-channel 60x2048x2048 .dax movies (~3.4 GB), every other row of phase
+   10's 8x8 grid of nuclei (32) as its segmentation, two chromosome
+   centres a nucleus and one
+   spot a region within 2 px of each, through ``CellList(...,
+   save_images=True)``: ``_process_fovs`` (flags 2, drift within 0.1 px),
+   32 cells, their segmentation and drift, the jittered centres, the
+   per-FOV multi-fit (seed_classify, gather_cubes and lm_fit launched; 4
+   cells equal to the CPU's at the fit tolerances), EM picks (>= 90 %
+   within 1 px at a median <= 0.05 px in H0's frame), the population map
+   (1e-3 of NumPy's float64 nanmedian), domains, ternary dependent maps
+   (their pools exactly the flagged chromosomes) and the cell checkpoints
+   reloaded equal;
+16. ``figures/`` (_figures_phase), only where matplotlib imports (else it
+   says why): ``SpotBrowser`` over slice 1's corrected bench stack zoomed
+   to 60x256x256 (``seed_view``: one seed_classify launch, seeds equal to
+   the CPU's up to hazard 6; ``fit_view``: gather_cubes and lm_fit, >= 90
+   % of the view's planted spots within 1 px at a median <= 0.05 px),
+   ``BoundaryMarker`` on a 300-region population map, and every plot and
+   3D render once at a lab's size, each PNG > 1000 bytes.
 
 The script's whole time, then the last three lines: a JSON object
 describing each kernel, the card's name and power limit, and ``{"ok":
@@ -186,7 +206,8 @@ slice 1's three kernels and runs phase 13 alone, ``--only library`` phase
 14 alone (no kernel); ``--only parallel_ranks`` (four cards, not part of
 the one-card run) builds lm_fit and runs phase 13 (b)'s sharded round
 across four cards, one spawned process each under NCCL, against the same
-program on one card.
+program on one card; ``--only legacy`` and ``--only figures`` build
+seed_classify, lm_fit and gather_cubes and run phase 15 or 16 alone.
 """
 
 from __future__ import annotations
@@ -5819,6 +5840,694 @@ def _library_phase(smi: str) -> dict:
     return rec
 
 
+#: phase 15: the legacy facade's scene -- phase 10's grid of nuclei, two
+#: chromosome centres a nucleus (LEG_CHROM_DX px either side of its centre
+#: in x, jittered by up to 3 px), and in each of the 4 regions one spot
+#: within 2 px of every centre, among LEG_CLUTTER spots outside the nuclei
+LEG_ROUNDS = 2
+LEG_CLUTTER = 1000
+LEG_HEIGHTS = (1500.0, 5000.0)
+LEG_CLUTTER_HEIGHT = 3000.0
+LEG_CHROM_DX = 15.0
+LEG_CPU_CELLS = 4
+#: the nuclei of every LEG_ROW_STEP-th row of phase 10's grid (32 of 64):
+#: the depth cut that keeps the whole script's growth within 75 s
+LEG_ROW_STEP = 2
+
+
+def _ball(rng, n: int, radius: float) -> np.ndarray:
+    """(n, 3) points uniform in a ball of `radius`."""
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return v * radius * rng.uniform(0, 1, (n, 1)) ** (1.0 / 3.0)
+
+
+def _outside_nuclei(rng, n: int, shape, nuclei, margin_px: float = 8.0):
+    """(n, 3) points at least `margin_px` (scaled to the smallest
+    semi-axis) outside every nucleus and 8 px inside the stack."""
+    centres = np.asarray([c for _, c, _ in nuclei])
+    semis = np.asarray([s for _, _, s in nuclei], np.float64)
+    margin = 1.0 + margin_px / semis.min()
+    out = np.zeros((0, 3))
+    while len(out) < n:
+        p = rng.uniform([8.0] * 3, np.asarray(shape) - 8.0, (4 * n, 3))
+        far = (_ellipsoid_value(p[:, None], centres[None], semis[None])
+               > margin ** 2).all(axis=1)
+        out = np.vstack([out, p[far]])
+    return out[:n]
+
+
+def _legacy_phase(torch, smi: str, dev=None, shape=SHAPE, nuclei=None,
+                  n_clutter=LEG_CLUTTER, require=None) -> dict:
+    """Phase 15: the legacy facade (``legacy.CellList`` / ``CellData``)
+    at a lab's width.  One FOV of LEG_ROUNDS hyb rounds H0R0 and H1R1 in
+    phase 8's layout (750 / 647 / 488, 60x2048x2048 uint16, 10 buffer
+    frames, ~3.4 GB of movies and a Color_Usage.csv; the free space checked
+    first, the folder removed at the end): every other row of phase 10's
+    8x8 grid of nuclei (32, cut from 64: LEG_ROW_STEP) saved as the
+    segmentation, two chromosome centres in each nucleus,
+    each of the 4 regions (u1..u4) planting one spot within 2 px of every
+    centre plus LEG_CLUTTER spots outside the nuclei, phase 8's 500 beads
+    in 488; H1 moved by a planted drift of at most 2 px per axis.  Steps
+    of ``CellList(..., save_images=True)`` on the card, each timed on the
+    host clock around ``torch.cuda.synchronize()``: ``_process_fovs``
+    (exact classifier), ``_create_cells_fov`` (one cell a nucleus),
+    ``_load_segmentation``, ``_load_drift``,
+    ``_update_chromosomes_for_cells`` (the planted centres jittered by up
+    to 2 px), ``_spot_finding_for_cells`` (fit_window 40; each region
+    image read and uploaded once), ``_pick_spots_for_cells("EM")``, the
+    distance maps, ``_calculate_population_map("median")``,
+    ``_batch_domain_calling``, ``_generate_dependent_maps`` on ternary
+    flags, ``_save_cells_to_files`` then ``_load_cells_from_files``.
+    Gates, each a hard failure: every region flag 2; the drift within 0.1
+    px per axis of the planted one; seed_classify, gather_cubes and lm_fit
+    launched in ``_spot_finding_for_cells``; >= 90 % of the (chromosome,
+    region) planted spots picked within 1 px at a median error <= 0.05 px
+    in H0's frame; LEG_CPU_CELLS cells' candidates equal to the port's CPU
+    run of the same cells at the fit tolerances; the population map within
+    1e-3 relative of float64 NumPy's ``nanmedian`` over the same screened
+    maps; the dependent maps' pools holding exactly the chromosomes
+    flagged +1 and -1; the reloaded cells equal.  `dev`, `shape`,
+    `nuclei`, `n_clutter` and `require` (the launch check) exist for a CPU
+    rehearsal at a small size."""
+    import csv
+    import shutil
+    import tempfile
+
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.config import (CorrectionConfig,
+                                                 ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.io import (FovStore, interleave_channels,
+                                             write_dax)
+    from imageanalysis3_tpu_torch.legacy import CellData, CellList
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+
+    dev = torch.device("cuda") if dev is None else dev
+    require = _require_launches if require is None else require
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    if nuclei is None:
+        nuclei = [n for n in _grid_nuclei(shape)
+                  if (n[0] - 1) // CELL_GRID % LEG_ROW_STEP == 0]
+    chans, n_z = list(DAX_CHANNELS), shape[0]
+    fov = "Conv_zscan_00.dax"
+    stack_bytes = int(np.prod(shape)) * 2
+    movie_bytes = (n_z * len(chans) + 2 * DAX_BUFFER) * stack_bytes // n_z
+    need = LEG_ROUNDS * (movie_bytes + 2 * stack_bytes) + stack_bytes
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < 1.5 * need:
+        raise AssertionError(f"legacy: {free / 1e9:.2f} GB free under "
+                             f"{root}, need {1.5 * need / 1e9:.2f} GB for "
+                             f"the movies, stored images and labels")
+    rec = {"shape": list(shape), "cells": len(nuclei),
+           "movie_bytes": movie_bytes, "seconds": {}, "launches": {}}
+    secs = rec["seconds"]
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # ---- the scene ----------------------------------------------------------
+    rng = np.random.default_rng(151)
+    cell_ids = [cid for cid, _, _ in nuclei]
+    chrom = {cid: np.stack([c + [0.0, s * LEG_CHROM_DX, 0.0]
+                            + rng.uniform(-3.0, 3.0, 3) for s in (-1, 1)])
+             for cid, c, _ in nuclei}
+    all_chroms = np.concatenate([chrom[c] for c in cell_ids])
+    row_of = {(c, j): 2 * k + j for k, c in enumerate(cell_ids)
+              for j in range(2)}
+    regions = {}             # rid -> (round, channel index, planted, heights)
+    for r in range(LEG_ROUNDS):
+        for ci in range(2):
+            regions[2 * r + ci + 1] = (
+                r, ci, all_chroms + _ball(rng, len(all_chroms), 2.0),
+                rng.uniform(*LEG_HEIGHTS, len(all_chroms)))
+    clutter = {rid: _outside_nuclei(rng, n_clutter, shape, nuclei)
+               for rid in regions}
+    beads = syn.sample_spot_params(shape, 500, rng, min_separation=14.0,
+                                   height_range=(2000.0, 5000.0),
+                                   sigma_jitter=0.0, background=120.0)
+    drifts = np.vstack([np.zeros(3), rng.uniform(-2.0, 2.0,
+                                                 (LEG_ROUNDS - 1, 3))])
+    rec["planted_drifts"] = drifts.tolist()
+
+    tmp = tempfile.mkdtemp(prefix="legacy_", dir=root)
+    try:
+        data = os.path.join(tmp, "data")
+        secs["write"] = 0.0
+        for r in range(LEG_ROUNDS):
+            t0 = time.perf_counter()
+            chs = []
+            for ci in range(2):
+                _, _, planted, heights = regions[2 * r + ci + 1]
+                centers = np.vstack([planted, clutter[2 * r + ci + 1]])
+                h = np.concatenate([heights, np.full(
+                    n_clutter, LEG_CLUTTER_HEIGHT)])
+                im = syn.render_spots(shape, centers + drifts[r], h,
+                                      background=150.0, device=dev)
+                chs.append(syn.noisy_uint16(im, seed=150 + 10 * r + ci))
+                del im
+            im = syn.render_spots(shape, beads["centers"] + drifts[r],
+                                  beads["heights"], background=120.0,
+                                  device=dev)
+            chs.append(syn.noisy_uint16(im, seed=152 + 10 * r))
+            del im
+            movie = interleave_channels([c.cpu().numpy() for c in chs],
+                                        buffer_frames=DAX_BUFFER)
+            del chs
+            secs[f"render_H{r}"] = time.perf_counter() - t0
+            folder = os.path.join(data, f"H{r}R{r}")
+            os.makedirs(folder)
+            path = os.path.join(folder, fov)
+
+            def write():
+                write_dax(path, movie)
+                with open(path, "rb+") as fh:
+                    os.fsync(fh.fileno())
+            timed("write_one", write)
+            secs["write"] += secs.pop("write_one")
+            del movie
+        with open(os.path.join(data, "Color_Usage.csv"), "w",
+                  newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["Hyb"] + chans)
+            for r in range(LEG_ROUNDS):
+                w.writerow([f"H{r}R{r}", f"u{2 * r + 1}", f"u{2 * r + 2}",
+                            "beads"])
+        print(f"legacy: {LEG_ROUNDS} movies of {movie_bytes / 1e9:.3f} GB "
+              f"written in {secs['write']:.3f} s; {len(nuclei)} nuclei, "
+              f"{len(all_chroms)} chromosomes x {len(regions)} regions; "
+              f"planted drifts {drifts.round(4).tolist()}  [{smi}]")
+
+        cfg = ExperimentConfig(
+            image_size=shape, corr_channels=("750", "647"),
+            correction=CorrectionConfig(illumination=False),
+            seed=SeedConfig(th_seed=TH_SEED, max_num_seeds=2048,
+                            pyramid_bg=False),
+            fit=FitConfig())
+
+        # ---- 1. _process_fovs ---------------------------------------------------
+        cl = CellList(data, os.path.join(tmp, "save"), cfg=cfg,
+                      save_images=True, device=dev)
+        reset_kernel_launches()
+        counts = timed("process_fovs", cl._process_fovs)
+        rec["launches"]["process_fovs"] = kernel_launches()
+        path = cl.driver.store_path(fov)
+        with FovStore(path, "r") as store:
+            ids = [int(i) for i in store.ids("unique")]
+            flags = store.flags("unique").tolist()
+            stored = store.drifts("unique")
+            rec["store_backend"] = store.backend
+        drift_of = dict(zip(ids, stored))
+        derr = {rid: np.abs(drift_of[rid] + drifts[regions[rid][0]])
+                for rid in regions}
+        rec["flags"] = flags
+        rec["drift_err"] = {rid: e.round(4).tolist()
+                            for rid, e in derr.items()}
+        if (counts != {fov: {"unique": len(regions)}}
+                or any(f != 2 for f in flags)
+                or max(e.max() for e in derr.values()) > 0.1):
+            raise AssertionError(f"legacy: _process_fovs processed {counts},"
+                                 f" flags {flags}, drift errors "
+                                 f"{rec['drift_err']}")
+
+        # ---- 2-3. cells, segmentation, drift ------------------------------------
+        labels = _nuclei_labels(torch, shape, dev, nuclei)
+        lab_host = labels.to(torch.int16).cpu().numpy()
+        del labels
+        with FovStore(path) as store:
+            timed("save_segmentation",
+                  lambda: store.save_segmentation(lab_host))
+        del lab_host
+        cells = timed("create_cells_fov", lambda: cl._create_cells_fov(fov))
+        if [c.cell_id for c in cells] != sorted(cell_ids):
+            raise AssertionError(f"legacy: _create_cells_fov made cells "
+                                 f"{[c.cell_id for c in cells]}")
+        timed("load_segmentation", cl._load_segmentation)
+        timed("load_drift", cl._load_drift)
+        if not all(c._check_drift() for c in cells):
+            raise AssertionError("legacy: a cell's drift table is missing "
+                                 "or flagged")
+        for c in cells:            # the full-FOV masks are not needed again
+            c.segmentation_label = None
+
+        # ---- 4-5. chromosomes and the multi-fit ---------------------------------
+        picks = [[chrom[c.cell_id][j] + _ball(rng, 1, 2.0)[0]
+                  for j in range(2)] for c in cells]
+        timed("update_chromosomes",
+              lambda: cl._update_chromosomes_for_cells(picks))
+        reset_kernel_launches()
+        timed("spot_finding", lambda: cl._spot_finding_for_cells(
+            "unique", fit_window=40))
+        rec["launches"]["spot_finding"] = found = kernel_launches()
+        require("legacy: _spot_finding_for_cells", found, LEGACY_PATH)
+        rec["candidates"] = int(sum(len(v) for c in cells
+                                    for v in c.cand_spots.values()))
+        rec["driver_stages"] = cl.driver.timings.summary()
+        print(f"legacy: _process_fovs {secs['process_fovs']:.3f} s "
+              f"({counts}, drift errors {rec['drift_err']}; stages "
+              f"{ {k: round(v, 4) for k, v in rec['driver_stages'].items()} }"
+              f" s); "
+              f"_spot_finding_for_cells {secs['spot_finding']:.3f} s for "
+              f"{len(cells)} cells x 2 chromosomes x {len(regions)} regions "
+              f"({rec['candidates']} candidates), launches "
+              f"{ {k: found[k] for k in LEGACY_PATH} }  [{smi}]")
+
+        # the port's CPU run of LEG_CPU_CELLS cells on the same images
+        sel = np.linspace(0, len(cells) - 1, LEG_CPU_CELLS).astype(int)
+        t0 = time.perf_counter()
+        with FovStore(path, "r") as store:      # float32 once, as the card's
+            ims = {rid: torch.from_numpy(np.array(store.load_image(
+                "unique", rid))).to(torch.float32) for rid in ids}
+        for i in sel:
+            want = CellData({}, chrom_coords=cells[i].chrom_coords,
+                            device="cpu")._multi_fitting_for_chromosome(
+                                ims, fit_window=40)
+            for rid, w in want.items():
+                g = cells[i].cand_spots[rid]
+                ok = (g.shape == w.shape and np.allclose(
+                    g[:, 1:4], w[:, 1:4], rtol=0, atol=1e-3)
+                    and np.allclose(g[:, 0], w[:, 0], rtol=1e-2)
+                    and np.allclose(g[:, 5:8], w[:, 5:8], rtol=0,
+                                    atol=1e-3))
+                if not ok:
+                    raise AssertionError(
+                        f"legacy: cell {cells[i].cell_id} region u{rid}: "
+                        f"card {g.tolist()} vs CPU {w.tolist()}")
+        secs["cpu_cells"] = time.perf_counter() - t0
+        del ims
+
+        # ---- 6. EM picks ------------------------------------------------------------
+        traces = timed("pick_spots_em",
+                       lambda: cl._pick_spots_for_cells("EM"))
+        errs, total = [], 0
+        for cell, tr in zip(cells, traces):
+            rids = sorted(cell.cand_spots)
+            for j, trace in enumerate(tr):
+                for k, rid in enumerate(rids):
+                    total += 1
+                    p = trace[k, 1:4].astype(np.float64) + drift_of[rid]
+                    e = np.linalg.norm(
+                        p - regions[rid][2][row_of[(cell.cell_id, j)]])
+                    if e < 1.0:
+                        errs.append(e)
+        rec["picked"] = {"matched": len(errs), "of": total,
+                         "median_err_px": float(np.median(errs))
+                         if errs else float("nan")}
+        if (len(errs) < 0.9 * total
+                or not rec["picked"]["median_err_px"] <= 0.05):
+            raise AssertionError(f"legacy: EM picks {rec['picked']}")
+
+        # ---- 7-10. maps, domains, flags ---------------------------------------------
+        maps = timed("distance_maps",
+                     lambda: [c._generate_distance_map() for c in cells])
+        pop, n_used = timed("population_map",
+                            lambda: cl._calculate_population_map("median"))
+
+        def kept(ms):
+            return [m.astype(np.float64) for m in ms if np.sum(
+                np.isnan(m).sum(0) >= len(m) - 1) / len(m) <= 0.2]
+
+        flat = [m for ms in maps for m in ms]
+        ref = np.nanmedian(np.stack(kept(flat)), axis=0)
+        rel = float(np.nanmax(np.abs(pop - ref) / np.maximum(
+            np.abs(ref), 1e-12)))
+        rec["population"] = {"n_used": n_used, "of": len(flat),
+                             "max_rel_err": rel}
+        if n_used != len(kept(flat)) or not rel <= 1e-3 or not np.array_equal(
+                np.isnan(pop), np.isnan(ref)):
+            raise AssertionError(f"legacy: population map {rec['population']}")
+        domains = timed("batch_domain_calling", cl._batch_domain_calling)
+        n_reg = len(regions)
+        bad = [d for ds in domains for d in ds
+               if not (len(d) and d[0] == 0 and np.all(np.diff(d) > 0)
+                       and d[-1] < n_reg)]
+        rec["domain_starts"] = sorted({tuple(int(v) for v in d)
+                                       for ds in domains for d in ds})
+        if bad or len(domains) != len(cells):
+            raise AssertionError(f"legacy: domain starts {bad[:4]}")
+        ternary = rng.integers(-1, 2, (len(cells), 2))
+        dep = timed("dependent_maps", lambda: cl._generate_dependent_maps(
+            [list(f) for f in ternary]))
+        for key, sign in (("on", 1), ("off", -1)):
+            pool = kept([m for ms, f in zip(maps, ternary)
+                         for m, v in zip(ms, f) if v == sign])
+            got = dep[key]
+            if (got is None) != (not pool) or (pool and (
+                    got[1] != len(pool) or not np.array_equal(
+                        got[0], np.nanmedian(np.stack(pool), axis=0),
+                        equal_nan=True))):
+                raise AssertionError(f"legacy: dependent map '{key}' holds "
+                                     f"{None if got is None else got[1]} "
+                                     f"chromosomes, {len(pool)} flagged")
+        rec["dependent"] = {k: None if v is None else v[1]
+                            for k, v in dep.items()}
+
+        # ---- 11. checkpoints ---------------------------------------------------------
+        folder = os.path.join(tmp, "cells")
+        before = [(c.cand_spots, c.chrom_coords, c.picked_traces,
+                   c.distance_maps) for c in cells]
+        timed("save_cells", lambda: cl._save_cells_to_files(folder))
+        loaded = timed("load_cells", lambda: cl._load_cells_from_files(folder))
+        for (cand, cc, tr, dm), c in zip(before, loaded):
+            same = (list(c.cand_spots) == list(cand)
+                    and all(np.array_equal(c.cand_spots[k], v)
+                            for k, v in cand.items())
+                    and np.array_equal(np.asarray(c.chrom_coords),
+                                       np.asarray(cc))
+                    and all(np.array_equal(a, b, equal_nan=True)
+                            for a, b in zip(c.picked_traces, tr))
+                    and all(np.array_equal(a, b, equal_nan=True)
+                            for a, b in zip(c.distance_maps, dm)))
+            if not same:
+                raise AssertionError("legacy: a reloaded cell differs")
+        if len(loaded) != len(before):
+            raise AssertionError(f"legacy: {len(loaded)} cells reloaded of "
+                                 f"{len(before)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    rec["total_launches"] = {k: found[k] for k in LEGACY_PATH}
+    rec["per_cell_seconds"] = {k: secs[k] / len(nuclei) for k in (
+        "load_segmentation", "spot_finding", "pick_spots_em",
+        "batch_domain_calling") if k in secs}
+    print(f"legacy: phase {rec['phase_seconds']:.1f} s; picks "
+          f"{rec['picked']}; population {rec['population']}; dependent "
+          f"pools {rec['dependent']}; domain starts {rec['domain_starts']}; "
+          f"steps { {k: round(v, 4) for k, v in secs.items()} } s; per cell "
+          f"{ {k: round(v, 5) for k, v in rec['per_cell_seconds'].items()} }"
+          f" s  [{smi}]")
+    return rec
+
+
+#: phase 16: SpotBrowser's zoomed view of the bench stack, (x0, y0) and its
+#: xy extent
+FIG_VIEW_AT = (896, 1152)
+FIG_VIEW = 256
+FIG_CELL_BITS = 60                  # readout bits in the cell-count matrix
+
+
+def _png_sizes(paths) -> dict:
+    """File name -> bytes; raises unless every file holds > 1000 bytes."""
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in paths}
+    small = {k: v for k, v in sizes.items() if v <= 1000}
+    if small:
+        raise AssertionError(f"figures: PNGs of <= 1000 bytes: {small}")
+    return sizes
+
+
+def _figures_phase(torch, smi: str, dev=None, shape=SHAPE,
+                   n_spots=N_SPOTS, view_at=FIG_VIEW_AT, nuclei=None,
+                   n_chroms=AN_CHROMS, require=None) -> dict:
+    """Phase 16: ``figures/`` under Agg, where matplotlib imports (the
+    probe catches ``ModuleNotFoundError`` for matplotlib and nothing else;
+    without it the phase says why and returns).  ``SpotBrowser`` over slice
+    1's corrected bench stack (60x2048x2048 f32 on the card), zoomed to a
+    60x256x256 view: ``seed_view`` launches seed_classify once, its seeds
+    equal to the port's CPU ``seed_view`` on the same view except seeds
+    within hazard 6's qdiff tolerance (atol 0.05 + rtol 1e-4) of the
+    dynamic threshold, counted; ``fit_view`` launches gather_cubes and
+    lm_fit, >= 90 % of the view's planted spots (3 px inside it) found
+    within 1 px at a median <= 0.05 px.  ``BoundaryMarker`` on the median
+    map of phase 11's 2048-chromosome population (300 regions): the
+    planted domain starts marked, its ``.npz`` reloaded equal.  Then each
+    ``plots`` and ``render3d`` function draws once at a lab's size (the
+    300x300 map, the bench stack and its fits, phase 10's label volume, a
+    genome-wide cell of ~1000 loci, the population's chromosomes) and
+    writes a PNG of > 1000 bytes.  Every step is timed on the host clock
+    around ``torch.cuda.synchronize()``.  `dev`, `shape`, `n_spots`,
+    `view_at`, `nuclei`, `n_chroms` and `require` (the launch check) exist
+    for a CPU rehearsal at a small size."""
+    import shutil
+    import tempfile
+
+    rec = {"seconds": {}, "launches": {}}
+    try:
+        import matplotlib
+    except ModuleNotFoundError as err:
+        if err.name != "matplotlib":
+            raise
+        rec["not_run"] = (f"figures: not run: matplotlib is not installed "
+                          f"on this machine ({err})")
+        print(rec["not_run"])
+        return rec
+    matplotlib.use("Agg", force=True)
+    import matplotlib.pyplot as plt
+
+    from imageanalysis3_tpu_torch import figures as FG
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.analysis import distmap
+    from imageanalysis3_tpu_torch.config import (CorrectionConfig,
+                                                 ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.decode.merfish import SpotGroups
+    from imageanalysis3_tpu_torch.ops import (kernel_launches,
+                                              reset_kernel_launches)
+    from imageanalysis3_tpu_torch.ops.seeding import get_seeds
+    from imageanalysis3_tpu_torch.pipeline import FovPipeline
+
+    dev = torch.device("cuda") if dev is None else dev
+    require = _require_launches if require is None else require
+    on_card = dev.type == "cuda"
+    secs = rec["seconds"]
+    rec["matplotlib"] = matplotlib.__version__
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # ---- slice 1's corrected bench stack ----------------------------------------
+    rng = np.random.default_rng(0)
+    truth = syn.sample_spot_params(shape, n_spots, rng, min_separation=8.0,
+                                   height_range=(400.0, 3000.0),
+                                   sigma_jitter=0.0)
+    base = syn.render_spots(shape, truth["centers"], truth["heights"],
+                            background=truth["background"], device=dev)
+    x = torch.linspace(-1, 1, shape[1], device=dev)[:, None]
+    y = torch.linspace(-1, 1, shape[2], device=dev)[None, :]
+    prof = (1.0 - 0.35 * (x * x + y * y) / 2.0).clamp(0.2, 1.0)
+    raw = syn.noisy_uint16(base, seed=1, illumination=prof)
+    del base
+    pipe = FovPipeline(ExperimentConfig(
+        image_size=shape, correction=CorrectionConfig(),
+        seed=SeedConfig(th_seed=TH_SEED, max_num_seeds=2048),
+        fit=FitConfig()), n_channels=1, drift_channel_index=0,
+        fit_channel_indices=(0,), illumination=prof[None].cpu().numpy(),
+        image_shape=shape, device=dev)
+    corrected = pipe.correct_one(raw, 0)
+    del raw, pipe
+
+    tmp = tempfile.mkdtemp(prefix="figures_", dir=os.path.join(REPO,
+                                                              "build"))
+    pngs = []
+
+    def png(name):
+        pngs.append(os.path.join(tmp, name + ".png"))
+        return pngs[-1]
+
+    try:
+        # ---- SpotBrowser -----------------------------------------------------------
+        x0, y0 = view_at
+        kw = dict(seed_kwargs=dict(th_seed=TH_SEED))
+
+        def zoomed(device, ims):
+            b = FG.SpotBrowser(ims, device=device, **kw)
+            b.ax_xy.set_xlim(y0, y0 + FIG_VIEW)
+            b.ax_xy.set_ylim(x0 + FIG_VIEW, x0)
+            b.set_image(0)
+            return b
+
+        b = timed("spot_browser", lambda: zoomed(dev, [corrected]))
+        view = b.view_limits()
+        if view != (0, shape[0], x0, x0 + FIG_VIEW, y0, y0 + FIG_VIEW):
+            raise AssertionError(f"figures: the zoomed view is {view}")
+        reset_kernel_launches()
+        seeds = timed("seed_view", b.seed_view)
+        rec["launches"]["seed_view"] = counted = kernel_launches()
+        require("figures: seed_view", counted, ("seed_classify",))
+        if on_card and counted["seed_classify"] != 1:
+            raise AssertionError(f"figures: seed_view launched "
+                                 f"seed_classify {counted['seed_classify']}"
+                                 f" times")
+        cpu_b = timed("spot_browser_cpu", lambda: zoomed("cpu", b.ims))
+        cpu_seeds = timed("seed_view_cpu", cpu_b.seed_view)
+        got = {tuple(s) for s in seeds.astype(int).tolist()}
+        want = {tuple(s) for s in cpu_seeds.astype(int).tolist()}
+        sub = corrected[:, x0:x0 + FIG_VIEW, y0:y0 + FIG_VIEW].contiguous()
+        allowed = 0
+        for d_sub, extra in ((sub, got - want), (sub.cpu(), want - got)):
+            if not extra:
+                continue
+            s = get_seeds(d_sub, th_seed=TH_SEED)
+            th = float(s.threshold)
+            h = {tuple((c + [0, x0, y0]).tolist()): float(v) for c, v, ok in
+                 zip(s.coords.cpu().numpy(), s.heights.cpu().numpy(),
+                     s.valid.cpu().numpy()) if ok}
+            for c in extra:
+                if abs(h[c] - th) > 0.05 + 1e-4 * abs(th):
+                    raise AssertionError(
+                        f"figures: seed {c} (height {h[c]}, threshold "
+                        f"{th}) found on one device only")
+                allowed += 1
+        rec["seeds"] = {"card": len(got), "cpu": len(want),
+                        "differ_within_hazard_6": allowed}
+        reset_kernel_launches()
+        rows = timed("fit_view", b.fit_view)
+        rec["launches"]["fit_view"] = fitted = kernel_launches()
+        require("figures: fit_view", fitted, ("gather_cubes", "lm_fit"))
+        t = truth["centers"]
+        inside = t[(t[:, 1] >= x0 + 3) & (t[:, 1] < x0 + FIG_VIEW - 3)
+                   & (t[:, 2] >= y0 + 3) & (t[:, 2] < y0 + FIG_VIEW - 3)]
+        errs, n_m = _matched_errors(
+            torch, torch.as_tensor(rows[:, 1:4], device=dev), inside)
+        rec["fit"] = {"rows": len(rows), "planted": len(inside),
+                      "matched": n_m, "median_err_px":
+                      float(np.median(errs)) if n_m else float("nan")}
+        if n_m < 0.9 * len(inside) or not rec["fit"]["median_err_px"] <= 0.05:
+            raise AssertionError(f"figures: fit_view {rec['fit']}")
+        rec["total_launches"] = {k: counted[k] + fitted[k]
+                                 for k in LEGACY_PATH}
+        print(f"figures: matplotlib {rec['matplotlib']}; SpotBrowser "
+              f"{secs['spot_browser']:.3f} s, view {view}; seed_view "
+              f"{secs['seed_view']:.4f} s ({rec['seeds']}), fit_view "
+              f"{secs['fit_view']:.4f} s ({rec['fit']}); launches "
+              f"{rec['total_launches']}  [{smi}]")
+        plt.close("all")
+
+        # ---- BoundaryMarker on a 300-region population map ------------------------
+        prng = np.random.default_rng(43)
+        sizes = _domain_sizes(prng)
+        z, starts, comp, _, _, _ = _domain_population(prng, n_chroms, sizes)
+        zt = torch.as_tensor(z, device=dev)
+        med = timed("median_map", lambda: distmap.median_distance_map(
+            zt).cpu().numpy())
+        npz = os.path.join(tmp, "bounds.npz")
+        m = FG.BoundaryMarker([med], names=["population"], save_file=npz)
+        m.fig.canvas.draw()
+        for s in starts[1:]:
+            m.add_boundary(float(s) - 0.3, float(s) + 0.3)
+        m.autoscale()
+        back = FG.BoundaryMarker([med], save_file=npz)
+        if (not np.array_equal(m.domain_starts(), starts)
+                or not np.array_equal(back.positions, m.positions)):
+            raise AssertionError(f"figures: BoundaryMarker starts "
+                                 f"{m.domain_starts()} vs {starts}")
+        m.fig.savefig(png("boundary_marker"))
+        plt.close("all")
+
+        # ---- every plot and render at a lab's size ----------------------------------
+        labels = _nuclei_labels(torch, shape, dev, nuclei)
+        grng = np.random.default_rng(160)
+        chr_zxys = [np.cumsum(grng.normal(0, 0.3, (GENOME_LOCI // 23, 3)),
+                              axis=0) for _ in range(23)]
+        edges = np.concatenate([[0], np.cumsum([len(c) for c in chr_zxys])])
+        groups = SpotGroups(
+            spot_idx=torch.zeros((4000, 4), dtype=torch.int64, device=dev),
+            region=torch.as_tensor(grng.integers(1, 301, 4000),
+                                   dtype=torch.int32, device=dev),
+            n_spots=torch.as_tensor(grng.integers(2, 5, 4000),
+                                    dtype=torch.int32, device=dev),
+            ok=torch.as_tensor(grng.uniform(size=4000) < 0.9, device=dev),
+            spot_usage=torch.zeros(16000, dtype=torch.int32, device=dev))
+        starts_per_chrom = [
+            np.unique(np.clip(starts + grng.integers(-1, 2, len(starts)),
+                              0, AN_REGIONS - 1)) for _ in range(n_chroms)]
+        one = z[0]
+        draws = {
+            "plot_distance_map": lambda: FG.plot_distance_map(
+                med, save_path=png("distance_map")),
+            "plot_boundaries": lambda: FG.plot_boundaries(
+                med, starts, save_path=png("boundaries")),
+            "plot_projection": lambda: FG.plot_projection(
+                corrected, save_path=png("projection")),
+            "plot_spot_overlay": lambda: FG.plot_spot_overlay(
+                corrected, rows, axis=1, save_path=png("spot_overlay")),
+            "plot_decode_stats": lambda: FG.plot_decode_stats(
+                groups, save_path=png("decode_stats")),
+            "plot_segmentation_labels": lambda: FG.plot_segmentation_labels(
+                labels, z=shape[0] // 2, spots=rows,
+                save_path=png("segmentation_labels")),
+            "plot_cell_spot_counts": lambda: FG.plot_cell_spot_counts(
+                grng.integers(0, 80, (CELL_GRID ** 2, FIG_CELL_BITS)),
+                save_path=png("cell_spot_counts")),
+            "plot_boundary_probability": lambda:
+                FG.plot_boundary_probability(
+                    np.arange(AN_REGIONS), starts_per_chrom,
+                    save_path=png("boundary_probability")),
+            "plot_genome_wide_distance_map": lambda:
+                FG.plot_genome_wide_distance_map(
+                    chr_zxys, GENOME_CHRS, edges,
+                    save_path=png("genome_wide_distance_map")),
+            "plot_spot_crops": lambda: FG.plot_spot_crops(
+                corrected, rows[:64], radius=10,
+                save_path=png("spot_crops")),
+            "chromosome_structure_3d_rendering": lambda:
+                FG.chromosome_structure_3d_rendering(
+                    one, image_radius=2000.0,
+                    save_path=png("structure_3d")),
+            "visualize_chromosome_3d_cloud": lambda:
+                FG.visualize_chromosome_3d_cloud(
+                    one, {"A": np.flatnonzero(comp == 0),
+                          "B": np.flatnonzero(comp == 1)},
+                    save_path=png("cloud_3d")),
+        }
+        for name, fn in draws.items():
+            timed(name, fn)
+            plt.close("all")
+        del labels
+        normed = timed("normalize_center_spots", lambda: [
+            FG.normalize_center_spots(c) for c in z])
+        dens = timed("spots_to_density", lambda: FG.spots_to_density(
+            normed[0]))
+        capped = timed("remove_cap", lambda: FG.remove_cap(sub))
+        crops = timed("extract_spot_crops", lambda: FG.extract_spot_crops(
+            corrected, rows, radius=10))
+        colors = timed("colormaps", lambda: [
+            FG.normalize_color(med), FG.transparent_cmap("viridis"),
+            FG.black_gradient((1.0, 0.5, 0.0)),
+            FG.transparent_gradient((0.2, 0.4, 0.9)),
+            *(getattr(FG, n) for n in ("myReds", "myBlues", "myGreens",
+                                       "myReds_r", "myBlues_r",
+                                       "myGreens_r"))])
+        if (len(normed) != n_chroms or not np.isfinite(dens).all()
+                or capped.shape != tuple(sub.shape)
+                or crops.shape != (len(rows), 21, 21, 21)
+                or not np.nanmax(colors[0]) == 1.0):
+            raise AssertionError("figures: a helper returned the wrong "
+                                 "shape or range")
+        rec["png_bytes"] = _png_sizes(pngs)
+    finally:
+        plt.close("all")
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"figures: phase {rec['phase_seconds']:.1f} s; {len(pngs)} PNGs "
+          f"{rec['png_bytes']}; steps "
+          f"{ {k: round(v, 4) for k, v in secs.items()} } s  [{smi}]")
+    return rec
+
+
 def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
     """One main-path round under torch.profiler: device time by kernel and
     the device's busy share of the round's wall time."""
@@ -5860,7 +6569,8 @@ def main(argv=None) -> int:
                                        "dax_path", "experiment", "picking",
                                        "cell_spots", "analysis",
                                        "segmentation", "parallel",
-                                       "library", "parallel_ranks"],
+                                       "library", "parallel_ranks",
+                                       "legacy", "figures"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
@@ -5874,7 +6584,9 @@ def main(argv=None) -> int:
                          "path's three kernels and phase 12, parallel "
                          "slice 1's three kernels and phase 13, library "
                          "phase 14 (no kernel), parallel_ranks lm_fit and "
-                         "the sharded round across 4 cards (needs 4)")
+                         "the sharded round across 4 cards (needs 4), "
+                         "legacy the per-cell path's three kernels and "
+                         "phase 15, figures the same three and phase 16")
     args = ap.parse_args(argv)
     t_script = time.perf_counter()
 
@@ -5914,7 +6626,8 @@ def main(argv=None) -> int:
             "cell_spots": list(CELL_PATH), "analysis": list(LEGACY_PATH),
             "segmentation": list(CELL_PATH),
             "parallel": list(PYRAMID_PATH), "library": [],
-            "parallel_ranks": ["lm_fit"],
+            "parallel_ranks": ["lm_fit"], "legacy": list(LEGACY_PATH),
+            "figures": list(LEGACY_PATH),
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -5950,6 +6663,12 @@ def main(argv=None) -> int:
         return 0
     if args.only == "parallel_ranks":
         _parallel_ranks_phase(torch, smi)
+        return 0
+    if args.only == "legacy":
+        _legacy_phase(torch, smi)
+        return 0
+    if args.only == "figures":
+        _figures_phase(torch, smi)
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -6189,6 +6908,18 @@ def main(argv=None) -> int:
 
     # ---- 14. library/ on the host ----------------------------------------------
     record["library"] = _library_phase(smi)
+    torch.cuda.empty_cache()
+
+    # ---- 15. the legacy CellList / CellData facade -----------------------------
+    record["legacy"] = leg = _legacy_phase(torch, smi)
+    leg_launches = leg["total_launches"]
+    torch.cuda.empty_cache()
+
+    # ---- 16. figures/ (where matplotlib imports) --------------------------------
+    record["figures"] = fig = _figures_phase(torch, smi)
+    fig_launches = fig.get("total_launches",
+                           {k: None for k in LEGACY_PATH})
+    torch.cuda.empty_cache()
 
     kernels = [
         {"name": "seed_pyramid", "route": "cuda",
@@ -6212,6 +6943,8 @@ def main(argv=None) -> int:
          "analysis_launches": ana_launches["lm_fit"],
          "segmentation_launches": seg_launches["lm_fit"],
          "parallel_launches": par_launches["lm_fit"],
+         "legacy_launches": leg_launches["lm_fit"],
+         "figures_launches": fig_launches["lm_fit"],
          "shapes": {k: {f: v[f] for f in ("spots", "px", "iters", "ms",
                                           "plain_ms", "bound_ms",
                                           "max_abs_err")}
@@ -6231,6 +6964,8 @@ def main(argv=None) -> int:
          "cell_spots_launches": cell_launches["seed_classify"],
          "analysis_launches": ana_launches["seed_classify"],
          "segmentation_launches": seg_launches["seed_classify"],
+         "legacy_launches": leg_launches["seed_classify"],
+         "figures_launches": fig_launches["seed_classify"],
          "cell_crop": {k: cell_kernels["seed_classify"][k]
                        for k in ("shape", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "max_abs_err")}},
@@ -6266,6 +7001,8 @@ def main(argv=None) -> int:
          "analysis_launches": ana_launches["gather_cubes"],
          "segmentation_launches": seg_launches["gather_cubes"],
          "parallel_launches": par_launches["gather_cubes"],
+         "legacy_launches": leg_launches["gather_cubes"],
+         "figures_launches": fig_launches["gather_cubes"],
          "entries": {"ball": {**gather["ball"],
                               "cell_crop": cell_kernels["gather_cubes"],
                               **{f"analysis {k}": v for k, v in

@@ -7,7 +7,10 @@ decoding of the rounds' spots and homolog E/M traces (``decode``) -- and
 the bead calibration that makes the round's correction profiles
 (``ops.profiles``, written and read by ``io``) -- and, after the spots
 are stored, picking them into chromosome traces (``decode``), distance
-maps (``analysis``) and the per-FOV ``pipeline.FieldOfView`` facade.  In PyTorch, with
+maps (``analysis``) and the per-FOV ``pipeline.FieldOfView`` facade -- and
+the figures (``figures``: matplotlib, imported inside its functions; its
+``SpotBrowser`` seeds and fits on the card) and the legacy Cell_List /
+Cell_Data workflow (``legacy``).  In PyTorch, with
 hand-written CUDA kernels (``csrc/``) for the seeding classifiers, the dual
 blur, the level stencil, the LM fit and the cube gather.  Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``; on the CPU

@@ -185,7 +185,8 @@ def test_port_sources_import_no_jax():
     for f in files:
         src = f.read_text()
         assert not pat.search(src), f
-        assert not _imports_run_at_import(ast.parse(src), "pandas"), f
+        for lib in ("pandas", "matplotlib"):
+            assert not _imports_run_at_import(ast.parse(src), lib), (f, lib)
     # the check finds a module-level import, and one in a class body
     assert _imports_run_at_import(ast.parse(
         "import pandas as pd\nclass A:\n    from pandas import x\n"
@@ -207,9 +208,12 @@ def test_port_imports_without_jax_in_subprocess():
         "merfish, new_decoder)\n"
         "from imageanalysis3_tpu_torch import library, parallel\n"
         "from imageanalysis3_tpu_torch.parallel import spatial\n"
+        "sys.modules['matplotlib'] = None\n"
+        "from imageanalysis3_tpu_torch import figures, legacy\n"
+        "from imageanalysis3_tpu_torch.figures import interactive\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'imageanalysis3_tpu', 'pandas') "
+        "('jax', 'jaxlib', 'imageanalysis3_tpu', 'pandas', 'matplotlib') "
         "and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
@@ -222,7 +226,7 @@ def test_port_imports_without_jax_in_subprocess():
 #: every subpackage the port has ported, and the modules whose JAX names
 #: differed (synthetic's device renderers, gaussian_fit's single-spot fit)
 PORTED = ["", "analysis", "decode", "io", "ops", "pipeline", "segmentation",
-          "parallel", "library"]
+          "parallel", "library", "figures"]
 RENAMED = ["synthetic", "ops.gaussian_fit"]
 
 
@@ -250,6 +254,28 @@ def test_package_exports_every_jax_name(sub):
         for c in ("DEFAULT_PIXEL_SIZE_NM", "DEFAULT_SIGMA_ZXY",
                   "DEFAULT_IMAGE_SIZE", "ALLOWED_COLORS", "CORR_CHANNELS"):
             assert getattr(port_mod, c) == getattr(jax_mod, c), c
+
+
+def test_legacy_exports_every_jax_name():
+    """legacy.py has no ``__all__``: every public class and function the
+    JAX module defines, and every method of its two classes, exists in
+    the port's."""
+    import inspect
+    from imageanalysis3_tpu import legacy as jax_mod
+    from imageanalysis3_tpu_torch import legacy as port_mod
+    want = {n for n, v in vars(jax_mod).items()
+            if not n.startswith("__") and (inspect.isfunction(v)
+                                           or inspect.isclass(v))
+            and v.__module__ == jax_mod.__name__}
+    assert {"CellData", "CellList", "_border_aware_centers"} <= want
+    assert not sorted(n for n in want if not hasattr(port_mod, n))
+    for cls in ("CellData", "CellList"):
+        methods = {n for n, v in vars(getattr(jax_mod, cls)).items()
+                   if callable(v) or isinstance(v, (staticmethod,
+                                                    classmethod))}
+        missing = sorted(n for n in methods
+                         if not hasattr(getattr(port_mod, cls), n))
+        assert not missing, (cls, missing)
 
 
 def test_package_data_lists_every_runtime_source():
