@@ -181,7 +181,13 @@ Phases, each of which raises (exit code != 0) on a failed check:
    the CPU's up to hazard 6; ``fit_view``: gather_cubes and lm_fit, >= 90
    % of the view's planted spots within 1 px at a median <= 0.05 px),
    ``BoundaryMarker`` on a 300-region population map, and every plot and
-   3D render once at a lab's size, each PNG > 1000 bytes.
+   3D render once at a lab's size, each PNG > 1000 bytes;
+17. the span record (_tracing_phase), on 3-channel 30x2048x2048 rounds
+   of bench.py's spots: spans on the profiler's clock, each round's count
+   of its waits on the card equal to what
+   ``torch.cuda.set_sync_debug_mode("warn")`` reports and none outside a
+   sync span, outputs and device ops the same with it on and off, its
+   cost, and its rounds without the profiler and under it.
 
 The script's whole time, then the last three lines: a JSON object
 describing each kernel, the card's name and power limit, and ``{"ok":
@@ -207,7 +213,9 @@ slice 1's three kernels and runs phase 13 alone, ``--only library`` phase
 the one-card run) builds lm_fit and runs phase 13 (b)'s sharded round
 across four cards, one spawned process each under NCCL, against the same
 program on one card; ``--only legacy`` and ``--only figures`` build
-seed_classify, lm_fit and gather_cubes and run phase 15 or 16 alone.
+seed_classify, lm_fit and gather_cubes and run phase 15 or 16 alone;
+``--only tracing`` builds slice 1's three kernels and runs phase 17 alone
+(the span record), its record as a JSON line last.
 """
 
 from __future__ import annotations
@@ -6559,6 +6567,292 @@ def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
             "top": [{"ms": ms, "count": c, "name": k} for ms, c, k in rows]}
 
 
+#: rounds of each path the tracing phase counts, and spans it times
+TRACE_ROUNDS = 3
+TRACE_SPANS = 2000
+
+
+def _tracing_phase(torch, smi: str, dev, shape=DUAL_SHAPE,
+                   n_spots=N_SPOTS) -> dict:
+    """Phase 17: the port's span record (``tracing``) on the card.
+
+    (a) The clock: spans around ``add_`` launches under torch.profiler hold
+    each aten op's interval on the profiler's clock (``trace_start_ns()``
+    plus ``time_range`` in us).  (b) On TRACE_ROUNDS 3-channel rounds of
+    bench.py's spots at `shape` (channel 2 the drift channel, 0 and 1
+    fitted), through ``process_round`` and through ``process_round_raw``
+    from pinned raw windows: the synchronising calls that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports inside the rounds,
+    recording off and on, equal each other and the rounds' own count, and
+    none falls outside a sync span; every output ``torch.equal`` with
+    recording on and off; each round's correct, drift, input and fit event
+    intervals against its round's.  (c) One profiled round with the record
+    on and one with it held off (the same round): the same device ops, by
+    name and count.  (d) The cost: a span and a sync span with recording
+    off, and on (two CUDA events), over TRACE_SPANS; rounds/s with
+    recording off and on, in turns; the recorded rounds' host time, the
+    host's own, syncs and event intervals, without the profiler and under
+    it.
+    """
+    import collections
+    import contextlib
+    import traceback
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch import tracing
+    from imageanalysis3_tpu_torch.config import (CorrectionConfig,
+                                                 ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.pipeline import FovPipeline
+
+    rec = {"card": smi}
+    t_phase = time.perf_counter()
+
+    # ---- (a) the clock ---------------------------------------------------
+    x = torch.ones(1 << 20, device=dev)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            with tracing.span("add"):
+                x.add_(1)
+        torch.cuda.synchronize()
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    ops = [e for e in prof.events() if e.name == "aten::add_"]
+    spans = tracing.record().loose
+    gaps = [((t0 + e.time_range.start * 1000 - s.start_ns) / 1e3,
+             (s.end_ns - t0 - e.time_range.end * 1000) / 1e3)
+            for e, s in zip(ops, spans)]
+    if len(ops) != 20 or len(spans) != 20 or min(min(g) for g in gaps) < 0:
+        raise AssertionError(f"tracing: aten::add_ outside its span on the "
+                             f"profiler's clock: {len(ops)} ops, "
+                             f"{len(spans)} spans, gaps (us) {gaps}")
+    rec["clock_gap_us"] = [min(g[0] for g in gaps), max(g[0] for g in gaps),
+                           min(g[1] for g in gaps), max(g[1] for g in gaps)]
+    print(f"tracing: clock, 20 aten::add_ inside their spans, "
+          f"{rec['clock_gap_us'][0]:.2f}-{rec['clock_gap_us'][1]:.2f} us in "
+          f"from the start, {rec['clock_gap_us'][2]:.2f}-"
+          f"{rec['clock_gap_us'][3]:.2f} us from the end  [{smi}]")
+
+    # ---- the scene -------------------------------------------------------
+    rng = np.random.default_rng(170)
+    truth = syn.sample_spot_params(shape, n_spots, rng, min_separation=8.0,
+                                   height_range=(400.0, 3000.0),
+                                   sigma_jitter=0.0)
+    base = syn.render_spots(shape, truth["centers"], truth["heights"],
+                            background=truth["background"], device=dev)
+    illum = torch.as_tensor(syn.illumination_profile(
+        shape[1:], falloff=0.35).astype(np.float32), device=dev)
+    stacks = [torch.stack([syn.noisy_uint16(base, seed=1700 + 10 * r + c,
+                                            illumination=illum)
+                           for c in range(3)])
+              for r in range(TRACE_ROUNDS + 1)]
+    del base
+    # raw windows: frame 3z + c holds channel c, in pinned host memory
+    raws = [s.permute(1, 0, 2, 3).reshape(-1, *shape[1:]).cpu().pin_memory()
+            for s in stacks[1:]]
+    pipe = FovPipeline(
+        ExperimentConfig(image_size=shape, correction=CorrectionConfig(),
+                         seed=SeedConfig(th_seed=TH_SEED,
+                                         max_num_seeds=2048),
+                         fit=FitConfig()),
+        n_channels=3, drift_channel_index=2, fit_channel_indices=(0, 1),
+        illumination=illum[None].expand(3, -1, -1).cpu().numpy(),
+        image_shape=shape, device=dev)
+    ref = pipe.prepare_reference(pipe.correct_reference(stacks[0]))
+    paths = {
+        "process_round": lambda r: pipe.process_round(stacks[1 + r], ref),
+        "process_round_raw": lambda r: pipe.process_round_raw(
+            raws[r], ref, (0, 1, 2), 3)}
+    for run in paths.values():
+        run(0)
+    torch.cuda.synchronize()
+
+    def counted(run):
+        """The rounds with every synchronising call counted (warnings
+        whose stack passes through the port)."""
+        sites = collections.Counter()
+
+        def hook(message, *a, **k):
+            if "synchroniz" not in str(message):
+                return
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "imageanalysis3_tpu_torch" in f.filename
+                      and not f.filename.endswith("tracing.py")]
+            if frames:
+                f = frames[-1]
+                sites[f"{os.path.basename(f.filename)}:{f.lineno}"] += 1
+
+        outs = []
+        old = warnings.showwarning
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            try:
+                for r in range(TRACE_ROUNDS):
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        outs.append(run(r))
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+            finally:
+                warnings.showwarning = old
+        torch.cuda.synchronize()
+        return outs, sites
+
+    # ---- (b) syncs counted, outputs, event intervals ----------------------
+    rec["paths"] = {}
+    for name, run in paths.items():
+        off, off_sites = counted(run)
+        tracing.clear()
+        with tracing.recording():
+            on, on_sites = counted(run)
+        rounds = tracing.record().rounds
+        syncs = sum(spans[0].attrs["syncs"] for spans in rounds)
+        unmarked = sum(spans[0].attrs["unmarked_syncs"] for spans in rounds)
+        by_site = collections.Counter(
+            s.attrs["site"] for spans in rounds for s in spans
+            if s.name == "sync")
+        n_off, n_on = sum(off_sites.values()), sum(on_sites.values())
+        same = all(torch.equal(a, b) for ro, rn in zip(off, on)
+                   for a, b in zip(ro, rn))
+        ratio = []      # (none on the CPU: no CUDA events)
+        for spans in rounds:
+            if spans[0].device_ms is not None:
+                parts = sum(s.device_ms for s in spans if s.name in (
+                    "correct", "drift", "input", "fit"))
+                ratio.append(parts / spans[0].device_ms)
+        p = rec["paths"][name] = {
+            "debug_syncs_off": n_off, "debug_syncs_on": n_on,
+            "round_syncs": syncs, "unmarked_syncs": unmarked,
+            "per_round": syncs / TRACE_ROUNDS, "sync_spans": dict(by_site),
+            "debug_sites": dict(on_sites), "outputs_equal": same,
+            "parts_over_round": ratio,
+            "round_device_ms": [s[0].device_ms for s in rounds],
+            "round_host_ms": [s[0].host_ms for s in rounds]}
+        print(f"tracing: {name}, {TRACE_ROUNDS} rounds: {n_off} synchronising "
+              f"calls off, {n_on} on, the rounds count {syncs} "
+              f"({p['per_round']:.1f} a round), {unmarked} outside a sync "
+              f"span; outputs equal {same}; stages over the round's event "
+              f"interval {[round(v, 4) for v in ratio]}; sync spans by site "
+              f"{dict(by_site)}  [{smi}]")
+        if not (n_off == n_on == syncs and unmarked == 0 and same):
+            raise AssertionError(f"tracing: {name}: {p}")
+
+    # ---- (c) no device op from the record ---------------------------------
+    def device_ops(hold_off):
+        saved = tracing._profiler_enabled
+        if hold_off:
+            tracing._profiler_enabled = lambda: False
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as pr:
+                paths["process_round_raw"](0)
+                torch.cuda.synchronize()
+        finally:
+            tracing._profiler_enabled = saved
+        return collections.Counter(
+            e.name for e in pr.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    tracing.clear()
+    with_rec, without = device_ops(False), device_ops(True)
+    rec["device_ops"] = {"names": len(with_rec),
+                         "launches": sum(with_rec.values()),
+                         "equal": with_rec == without,
+                         "rounds_recorded": len(tracing.record().rounds)}
+    print(f"tracing: one profiled raw round, {rec['device_ops']['launches']} "
+          f"device ops of {rec['device_ops']['names']} names with the record "
+          f"on, the same with it held off: {rec['device_ops']['equal']}  "
+          f"[{smi}]")
+    if not rec["device_ops"]["equal"] or \
+            rec["device_ops"]["rounds_recorded"] != 1:
+        raise AssertionError(f"tracing: device ops differ: "
+                             f"{with_rec - without} / {without - with_rec}")
+
+    # ---- (d) the cost ----------------------------------------------------
+    def per_span(make):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(TRACE_SPANS):
+            with make():
+                pass
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t) / TRACE_SPANS
+
+    def span_():
+        return tracing.span("fit", channel=0)
+
+    def sync_():
+        return tracing.sync("refit_check")
+
+    cost = {"span_off_us": per_span(span_), "sync_off_us": per_span(sync_)}
+    with tracing.recording():
+        cost["span_on_us"] = per_span(span_)
+        cost["sync_on_us"] = per_span(sync_)
+    def summary(rounds):
+        """Medians over recorded rounds: the round's host ms, the host's
+        own (less its sync spans), its syncs, and event intervals (ms a
+        round; a fit's and a seeding's, ms a channel)."""
+        med = statistics.median
+        out = {"rounds": len(rounds),
+               "round_host_ms": med(g[0].host_ms for g in rounds),
+               "host_own_ms": med(g[0].host_ms - sum(
+                   s.host_ms for s in g if s.name == "sync") for g in rounds),
+               "syncs": med(g[0].attrs["syncs"] for g in rounds),
+               "round_event_ms": med(g[0].device_ms for g in rounds)}
+        for name in ("correct", "drift"):
+            out[name + "_event_ms"] = med(sum(
+                s.device_ms for s in g if s.name == name) for g in rounds)
+        for name in ("fit", "seed"):
+            out[name + "_event_ms"] = med(s.device_ms for g in rounds
+                                          for s in g if s.name == name)
+        return {k: round(v, 3) for k, v in out.items()}
+
+    tracing.clear()
+    run = paths["process_round"]
+    t_rounds = {"off": [], "on": []}
+    for k in range(4):
+        for mode in (("off", "on") if k % 2 == 0 else ("on", "off")):
+            ctx = tracing.recording() if mode == "on" else \
+                contextlib.nullcontext()
+            with ctx:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for r in range(TRACE_ROUNDS):
+                    run(r).spots.cpu()
+                t_rounds[mode].append(
+                    TRACE_ROUNDS / (time.perf_counter() - t))
+    cost["rounds_per_s"] = t_rounds
+    # the same rounds recorded without the profiler, then under it
+    rec["recorded"] = summary(tracing.record().rounds)
+    tracing.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        t = time.perf_counter()
+        for r in range(TRACE_ROUNDS):
+            run(r).spots.cpu()
+        rec["profiled_rounds_per_s"] = TRACE_ROUNDS / (time.perf_counter()
+                                                       - t)
+    rec["profiled"] = summary(tracing.record().rounds)
+    tracing.clear()
+    rec["cost"] = cost
+    print(f"tracing: a span {cost['span_off_us']:.3f} us off, "
+          f"{cost['span_on_us']:.3f} us on; a sync span "
+          f"{cost['sync_off_us']:.3f} / {cost['sync_on_us']:.3f} us; rounds/s "
+          f"off {[round(v, 3) for v in t_rounds['off']]}, on "
+          f"{[round(v, 3) for v in t_rounds['on']]}, profiled "
+          f"{rec['profiled_rounds_per_s']:.3f}  [{smi}]")
+    print(f"tracing: process_round recorded without the profiler "
+          f"{rec['recorded']}; under it {rec['profiled']}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6570,7 +6864,7 @@ def main(argv=None) -> int:
                                        "cell_spots", "analysis",
                                        "segmentation", "parallel",
                                        "library", "parallel_ranks",
-                                       "legacy", "figures"],
+                                       "legacy", "figures", "tracing"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
@@ -6586,7 +6880,8 @@ def main(argv=None) -> int:
                          "phase 14 (no kernel), parallel_ranks lm_fit and "
                          "the sharded round across 4 cards (needs 4), "
                          "legacy the per-cell path's three kernels and "
-                         "phase 15, figures the same three and phase 16")
+                         "phase 15, figures the same three and phase 16, "
+                         "tracing slice 1's three kernels and phase 17")
     args = ap.parse_args(argv)
     t_script = time.perf_counter()
 
@@ -6627,7 +6922,7 @@ def main(argv=None) -> int:
             "segmentation": list(CELL_PATH),
             "parallel": list(PYRAMID_PATH), "library": [],
             "parallel_ranks": ["lm_fit"], "legacy": list(LEGACY_PATH),
-            "figures": list(LEGACY_PATH),
+            "figures": list(LEGACY_PATH), "tracing": list(PYRAMID_PATH),
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -6669,6 +6964,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "figures":
         _figures_phase(torch, smi)
+        return 0
+    if args.only == "tracing":
+        print(json.dumps(_tracing_phase(torch, smi, dev)))
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -6919,6 +7217,10 @@ def main(argv=None) -> int:
     record["figures"] = fig = _figures_phase(torch, smi)
     fig_launches = fig.get("total_launches",
                            {k: None for k in LEGACY_PATH})
+    torch.cuda.empty_cache()
+
+    # ---- 17. the span record ---------------------------------------------------
+    record["tracing"] = _tracing_phase(torch, smi, dev)
     torch.cuda.empty_cache()
 
     kernels = [

@@ -14,7 +14,6 @@ decoder's device, the CUDA card unless `device` says otherwise.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -22,6 +21,7 @@ import torch
 
 from ..config import DEFAULT_PIXEL_SIZE_NM
 from ..device import resolve_device
+from ..tracing import StageTimes
 from .homolog import HomologResult, _np, decode_chromosome_homologs
 from .merfish import MerfishDecoder, SpotGroups
 from .new_decoder import codebook_dataframe_to_tables
@@ -85,11 +85,22 @@ class DNAMerfishDecoder:
                       * self.keep_ratio_th)
         if len(spots) < min_needed:
             return None
-        t0 = time.perf_counter()
-        groups = self.decoder.decode(spots, bits, bucket=spot_bucket)
-        self._sync()
-        self.stage_seconds = {"tuples": time.perf_counter() - t0}
-        t0 = time.perf_counter()
+        times = StageTimes()
+        with times.stage("tuples"):
+            groups = self.decoder.decode(spots, bits, bucket=spot_bucket)
+            self._sync()
+        self.stage_seconds = times.summary()
+        with times.stage("homolog"):
+            out = self._assign_homologs(spots, groups, spot_bucket,
+                                        group_bucket, assign_kwargs)
+            self._sync()
+        self.stage_seconds = times.summary()
+        self.chr_2_homologs = out
+        return out
+
+    def _assign_homologs(self, spots, groups, spot_bucket, group_bucket,
+                         assign_kwargs) -> Dict[str, HomologResult]:
+        """Every chromosome's homolog E/M over the decoded groups."""
         self.spot_groups = groups
         if spot_bucket and len(spots) % spot_bucket:
             # match the decoder's padded spot table (padding rows are
@@ -127,9 +138,6 @@ class DNAMerfishDecoder:
                 sub, spots, rid_sel, pixel_size_nm=self.pixel_sizes,
                 n_homologs=self.num_homologs, device=self.device,
                 **assign_kwargs)
-        self._sync()
-        self.stage_seconds["homolog"] = time.perf_counter() - t0
-        self.chr_2_homologs = out
         return out
 
     def summarize_zxys_all_chromosomes(self) -> Tuple[np.ndarray, list]:

@@ -22,6 +22,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import as_tensor
 from .filters import full_f32_matmul
 
@@ -43,7 +44,8 @@ def _axis_kernel(n: int, npoints: int, center: torch.Tensor,
     offs = (torch.arange(npoints, device=dev, dtype=torch.float32) - m) \
         / upsample
     s = center[:, None] + offs[None, :]                        # (K, np)
-    two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device=dev)
+    with tracing.sync("dft_const"):
+        two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device=dev)
     theta = (two_pi * s)[..., None] * freqs / n
     return torch.polar(torch.ones_like(theta), theta)
 
@@ -66,12 +68,14 @@ def _upsampled_argmax(R: torch.Tensor, ny_full: int, center: torch.Tensor,
     offs = (torch.arange(npoints, device=dev, dtype=torch.float32) - m) \
         / upsample
     s = center[:, 2, None] + offs[None, :]
-    two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device=dev)
+    with tracing.sync("dft_const"):
+        two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device=dev)
     theta = (two_pi * s)[..., None] * freqs_y / ny_full
     w = torch.full((ny_half,), 2.0, device=dev)
-    w[0] = 1.0
-    if ny_full % 2 == 0:
-        w[-1] = 1.0
+    with tracing.sync("dft_weights"):
+        w[0] = 1.0
+        if ny_full % 2 == 0:
+            w[-1] = 1.0
     Wy = torch.polar(torch.ones_like(theta), theta) * w
     # full f32 whatever the caller's TF32 setting (the reference: HIGHEST)
     with full_f32_matmul():
@@ -127,7 +131,8 @@ def _phase_correlate_spectrum(F_ref, F_mov, shape, upsample_factor,
     z, x, y = shape
     peak = torch.stack([flat // (x * y), (flat // y) % x, flat % y],
                        dim=1).to(torch.float32)
-    size = torch.tensor(shape, dtype=torch.float32, device=cc.device)
+    with tracing.sync("peak_size"):
+        size = torch.tensor(shape, dtype=torch.float32, device=cc.device)
     shift = torch.where(peak > size / 2, peak - size, peak)
     if upsample_factor <= 1:
         return shift
@@ -243,21 +248,25 @@ def consensus_drift(drifts: torch.Tensor, drift_diff_th: float = 1.0,
     agree = d2 <= drift_diff_th ** 2       # includes self (diagonal)
     counts = agree.to(torch.int32).sum(dim=1)
     best = counts.argmax()
-    n_good = counts[best]
-    group = agree[best]
+    with tracing.sync("consensus_index"):
+        n_good = counts[best]
+        group = agree[best]
     good_mean = torch.where(group[:, None], drifts, 0.0).sum(dim=0) \
         / n_good.to(torch.float32).clamp_min(1.0)
     eye = torch.eye(k, dtype=torch.bool, device=drifts.device)
     d2 = torch.where(eye, float("inf"), d2)
     pair_flat = d2.reshape(-1).argmin()
     i, j = pair_flat // k, pair_flat % k
-    third_score = d2[:, i] + d2[:, j]
-    third_score[i] = float("inf")
-    third_score[j] = float("inf")
+    # indexing by a 0-dim index tensor reads it on the host
+    with tracing.sync("consensus_index"):
+        third_score = d2[:, i] + d2[:, j]
+        third_score[i] = float("inf")
+        third_score[j] = float("inf")
     t = third_score.argmin()
     # times the f32 reciprocal: the product XLA evaluates for the JAX
     # package's `/ 3.0`, so both packages give the same bits
-    fallback = (drifts[i] + drifts[j] + drifts[t]) * (1.0 / 3.0)
+    with tracing.sync("consensus_index"):
+        fallback = (drifts[i] + drifts[j] + drifts[t]) * (1.0 / 3.0)
     ok = n_good >= min_good_drifts
     out = torch.where(ok, good_mean, fallback)
     flag = torch.where(ok, 0, 1).to(torch.int32)

@@ -23,6 +23,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     """Discrete Gaussian kernel identical to scipy.ndimage's construction.
@@ -139,7 +141,9 @@ def _pad_axis(im: torch.Tensor, axis: int, lo: int, hi: int,
         out.narrow(axis, lo, n).copy_(im)
         return out
     idx = _map_boundary_index(np.arange(-lo, n + hi), n, mode)
-    return im.index_select(axis, torch.from_numpy(idx).to(im.device))
+    with tracing.sync("pad_index"):
+        idx = torch.from_numpy(idx).to(im.device)
+    return im.index_select(axis, idx)
 
 
 def _shift_add(im: torch.Tensor, kernel: np.ndarray, axis: int,
@@ -166,8 +170,9 @@ def _conv1d_along_axis(im: torch.Tensor, kernel: np.ndarray, axis: int,
     n = im.shape[axis]
     if k <= 9 and n > k:
         return _shift_add(im, kernel, axis, mode)
-    w = torch.from_numpy(_band_matrix(n, tuple(kernel.tolist()), mode)
-                         ).to(im.device)
+    with tracing.sync("band_matrix"):
+        w = torch.from_numpy(_band_matrix(n, tuple(kernel.tolist()), mode)
+                             ).to(im.device)
     moved = im.movedim(axis, -1)
     with full_f32_matmul():
         return torch.matmul(moved, w.T).movedim(-1, axis)

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import as_tensor
 from .filters import counting_median
 from .gather_kernel import ball_offsets, gather_ball
@@ -126,8 +127,9 @@ def init_params(pixels: torch.Tensor, mask: torch.Tensor,
             / wsum.clamp_min(1e-12)[:, None]
         u = ((c0 - center_est) / delta[:, None]).clamp(-0.9, 0.9)
         cp = torch.where(wsum[:, None] > 1e-6, -2.0 * torch.atanh(u), 0.0)
-    rest = torch.tensor([wg, wg, wg, 0.0, 0.0], dtype=torch.float32,
-                        device=pixels.device).expand(n, 5)
+    with tracing.sync("fit_init_rest"):
+        rest = torch.tensor([wg, wg, wg, 0.0, 0.0], dtype=torch.float32,
+                            device=pixels.device).expand(n, 5)
     return torch.cat([bk[:, None], h[:, None], cp, rest], dim=1)
 
 
@@ -373,29 +375,36 @@ def iter_fit_seed_points(im: torch.Tensor, seeds_zxy: torch.Tensor,
         params_k = params[sel_idx]
         delta_k = torch.full((sel_idx.shape[0],), max_delta_center,
                              dtype=f32, device=dev)
-        while (rounds_done < n_max_iter
-               and not bool((converged | ~iterating).all())):
-            sub_k = _recon_at(coords_k, nat, nidx_k, nmask_k)
-            params_k, new_eps = _batched_lm(
-                pix_k - sub_k, coords_k, mask_k, ce_k, delta_k, min_w,
-                max_w, init_w, repeat_iters, params_k, analytic_jac, backend)
-            new_nat = to_natural(params_k, ce_k, delta_k, min_w, max_w,
-                                 new_eps)
-            moved2 = ((new_nat[:, 1:4] - nat[sel_idx, 1:4]) ** 2).sum(dim=1)
-            nat[sel_idx] = new_nat
-            converged[sel_idx] = moved2 < max_dist_th ** 2
+        while rounds_done < n_max_iter:
+            with tracing.sync("refit_check"):
+                done = bool((converged | ~iterating).all())
+            if done:
+                break
+            with tracing.span("refit"):
+                sub_k = _recon_at(coords_k, nat, nidx_k, nmask_k)
+                params_k, new_eps = _batched_lm(
+                    pix_k - sub_k, coords_k, mask_k, ce_k, delta_k, min_w,
+                    max_w, init_w, repeat_iters, params_k, analytic_jac,
+                    backend)
+                new_nat = to_natural(params_k, ce_k, delta_k, min_w, max_w,
+                                     new_eps)
+                moved2 = ((new_nat[:, 1:4] - nat[sel_idx, 1:4]) ** 2
+                          ).sum(dim=1)
+                nat[sel_idx] = new_nat
+                converged[sel_idx] = moved2 < max_dist_th ** 2
             rounds_done += 1
 
     # validity: seed valid, finite row, center strictly inside image
     finite = torch.isfinite(nat).all(dim=1)
-    size = torch.tensor(imf.shape, dtype=f32, device=dev)
+    with tracing.sync("fit_image_size"):
+        size = torch.tensor(imf.shape, dtype=f32, device=dev)
     inside = ((nat[:, 1:4] > 0) & (nat[:, 1:4] < size)).all(dim=1)
     enough_px = base_mask.to(torch.int32).sum(dim=1) > 10
     valid = seeds_valid & finite & inside & enough_px
+    with tracing.sync("fit_rounds"):
+        n_rounds = torch.tensor(rounds_done, dtype=torch.int32, device=dev)
     return FitResult(spots=nat, valid=valid, converged=converged,
-                     n_rounds=torch.tensor(rounds_done, dtype=torch.int32,
-                                           device=dev),
-                     n_contested=n_contested)
+                     n_rounds=n_rounds, n_contested=n_contested)
 
 
 # ---------------------------------------------------------------------------

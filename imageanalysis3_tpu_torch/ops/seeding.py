@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .filters import (_pad_axis, _window_reduce_interior, gaussian_filter,
                       maximum_filter, minimum_filter)
 from .seed_kernels import (dual_gaussian_blur, fused_seed_classify,
@@ -202,7 +203,8 @@ def get_seeds(im: torch.Tensor,
     reach = cum >= min_dynamic_seeds
     chosen = torch.where(reach.any(), reach.to(torch.int32).argmax(),
                          n_lvl - 1)
-    th = torch.tensor(th_f, dtype=torch.float32, device=dev)
+    with tracing.sync("seed_threshold"):
+        th = torch.tensor(th_f, dtype=torch.float32, device=dev)
     chosen_f = chosen.to(torch.float32)
     chosen_th = th * (1.0 - chosen_f / n_lvl)
 
@@ -249,8 +251,9 @@ def get_seeds(im: torch.Tensor,
     brem = block_idx % (x2 * y2)
     bx = brem // y2
     by = brem % y2
-    offs = torch.as_tensor(np.indices((2, 2, 2)).reshape(3, 8).T,
-                           device=dev)                            # (8, 3)
+    with tracing.sync("block_offsets"):
+        offs = torch.as_tensor(np.indices((2, 2, 2)).reshape(3, 8).T,
+                               device=dev)                        # (8, 3)
     cz = bz[:, None] * 2 + offs[None, :, 0]
     cx = bx[:, None] * 2 + offs[None, :, 1]
     cy = by[:, None] * 2 + offs[None, :, 2]

@@ -27,7 +27,7 @@ import os
 import queue
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +46,7 @@ from ..ops.corrections import deinterleave_stack
 from ..ops.warp import warp_image_drift
 from ..segmentation.chromosome import (find_candidate_chromosomes,
                                        select_candidate_chromosomes)
+from ..tracing import StageTimes
 from .fov import FovPipeline
 
 #: data_type <-> region-id prefix (reference classes/__init__.py:22-32)
@@ -99,28 +100,6 @@ class RawRound:
 
     block: np.ndarray
     window: object
-
-
-@dataclass
-class StageTimes:
-    """Structured per-stage timing record (replaces the reference's
-    `verbose` wall-time prints)."""
-
-    records: List[Dict] = field(default_factory=list)
-
-    def add(self, stage: str, seconds: float, **extra):
-        self.records.append({"stage": stage, "seconds": float(seconds),
-                             **extra})
-
-    def total(self, stage: Optional[str] = None) -> float:
-        return sum(r["seconds"] for r in self.records
-                   if stage is None or r["stage"] == stage)
-
-    def summary(self) -> Dict[str, float]:
-        out: Dict[str, float] = {}
-        for r in self.records:
-            out[r["stage"]] = out.get(r["stage"], 0.0) + r["seconds"]
-        return out
 
 
 class ExperimentDriver:
@@ -354,22 +333,19 @@ class ExperimentDriver:
         With ``device_deinterleave``: one sequential read of the raw
         interleaved frame window -> :class:`RawRound`, de-interleaved on
         the device."""
-        t0 = time.perf_counter()
         path = os.path.join(plan.folder, fov_name)
         layout = dict(n_z=self.cfg.image_size[0],
                       buffer_frames=self.cfg.num_buffer_frames,
                       empty_frames=self.cfg.num_empty_frames)
-        if self.device_deinterleave:
-            window = raw_frame_window(plan.channels,
-                                      self.color_usage.channels, **layout)
-            out = RawRound(block=read_raw_window(path, window),
-                           window=window)
-        else:
-            out = load_dax_channels(path, plan.channels,
-                                    self.color_usage.channels, **layout)
-        self.timings.add("load_dax", time.perf_counter() - t0,
-                         folder=self._folder_key(plan.folder))
-        return out
+        with self.timings.stage("load_dax",
+                                folder=self._folder_key(plan.folder)):
+            if self.device_deinterleave:
+                window = raw_frame_window(plan.channels,
+                                          self.color_usage.channels, **layout)
+                return RawRound(block=read_raw_window(path, window),
+                                window=window)
+            return load_dax_channels(path, plan.channels,
+                                     self.color_usage.channels, **layout)
 
     def _to_stack(self, ims) -> torch.Tensor:
         """A host round on the device as (C, Z, X, Y): a RawRound through
@@ -403,10 +379,9 @@ class ExperimentDriver:
         plan = ref_plans[0] if ref_plans else self._bead_only_plan()
         pipe = self._pipeline_for(plan)
         ims = self._to_stack(self._load_round(plan, fov_name))
-        t0 = time.perf_counter()
-        ref_spec = pipe.prepare_reference(pipe.correct_reference(ims))
-        self._sync()
-        self.timings.add("correct_reference", time.perf_counter() - t0)
+        with self.timings.stage("correct_reference"):
+            ref_spec = pipe.prepare_reference(pipe.correct_reference(ims))
+            self._sync()
         return ref_spec
 
     def process_fov(self, fov_name: str,
@@ -449,37 +424,35 @@ class ExperimentDriver:
 
             ref_im = self._reference_image(fov_name)
 
-            def flush(plan, res, ims, dispatch_s):
+            def flush(plan, res, ims, stage):
                 """Wait for one round's device result and persist it; the
                 round's time is its dispatch's plus this wait."""
                 t0 = time.perf_counter()
                 self._sync()
-                self.timings.add("process_round",
-                                 dispatch_s + time.perf_counter() - t0,
-                                 folder=self._folder_key(plan.folder))
-                t0 = time.perf_counter()
-                drift = res.drift.cpu().numpy()
-                dflag = int(res.drift_flag)
-                spots = res.spots.cpu().numpy()
-                raw = res.raw_spots.cpu().numpy()
-                valid = res.valid.cpu().numpy()
-                corrected_ims = None
-                if self.save_images:
-                    corrected_ims = self._pipeline_for(plan).correct(
-                        self._to_stack(ims)).cpu().numpy()
-                for ci, (dtype, rid) in zip(plan.fit_channel_indices,
-                                            plan.regions):
-                    if rid not in pending[dtype]:
-                        continue
-                    sel = valid[ci]
-                    sink.save_spots(dtype, rid, spots[ci][sel],
-                                    raw[ci][sel], drift,
-                                    flag=FLAG_CORRECTED, drift_flag=dflag)
-                    if corrected_ims is not None:
-                        sink.save_image(dtype, rid, corrected_ims[ci])
-                    processed[dtype] += 1
-                sink.flush()
-                self.timings.add("save", time.perf_counter() - t0)
+                stage["seconds"] += time.perf_counter() - t0
+                with self.timings.stage("save"):
+                    drift = res.drift.cpu().numpy()
+                    dflag = int(res.drift_flag)
+                    spots = res.spots.cpu().numpy()
+                    raw = res.raw_spots.cpu().numpy()
+                    valid = res.valid.cpu().numpy()
+                    corrected_ims = None
+                    if self.save_images:
+                        corrected_ims = self._pipeline_for(plan).correct(
+                            self._to_stack(ims)).cpu().numpy()
+                    for ci, (dtype, rid) in zip(plan.fit_channel_indices,
+                                                plan.regions):
+                        if rid not in pending[dtype]:
+                            continue
+                        sel = valid[ci]
+                        sink.save_spots(dtype, rid, spots[ci][sel],
+                                        raw[ci][sel], drift,
+                                        flag=FLAG_CORRECTED,
+                                        drift_flag=dflag)
+                        if corrected_ims is not None:
+                            sink.save_image(dtype, rid, corrected_ims[ci])
+                        processed[dtype] += 1
+                    sink.flush()
 
             # one-round readahead: round r+1 goes to the device before
             # round r is persisted, and a loader thread reads round r+1's
@@ -489,12 +462,13 @@ class ExperimentDriver:
                 in_flight = None
                 for plan, ims in self._iter_rounds(todo, fov_name):
                     pipe = self._pipeline_for(plan)
-                    t0 = time.perf_counter()
-                    res = self._dispatch_round(pipe, ims, ref_im)
-                    dispatch_s = time.perf_counter() - t0
+                    with self.timings.stage(
+                            "process_round",
+                            folder=self._folder_key(plan.folder)) as stage:
+                        res = self._dispatch_round(pipe, ims, ref_im)
                     if in_flight is not None:
                         flush(*in_flight)
-                    in_flight = (plan, res, ims, dispatch_s)
+                    in_flight = (plan, res, ims, stage)
                 if in_flight is not None:
                     flush(*in_flight)
             finally:
@@ -532,9 +506,8 @@ class ExperimentDriver:
     def _drain_sink(self, sink) -> None:
         """Complete all queued checkpoint writes (no-op for a bare store)."""
         if isinstance(sink, AsyncFovWriter):
-            t0 = time.perf_counter()
-            sink.close()
-            self.timings.add("save_drain", time.perf_counter() - t0)
+            with self.timings.stage("save_drain"):
+                sink.close()
 
     def _process_sequential(self, fov_name: str, store: FovStore,
                             sink, pending, processed) -> None:
@@ -567,17 +540,16 @@ class ExperimentDriver:
                 prev_im = self._pipeline_for(prev_plan).correct_reference(
                     self._to_stack(self._load_round(prev_plan, fov_name)))
             ims = self._to_stack(self._load_round(plan, fov_name))
-            t0 = time.perf_counter()
-            if prev_im is None:
-                prev_im = pipe.correct_reference(ims)
-            # one pass corrects, registers, fits AND returns the corrected
-            # drift channel as the next round's registration target:
-            # exactly one correction per round
-            res, prev_im = pipe.process_round_returning_ref(ims, prev_im)
-            prev_plan = plan
-            self._sync()
-            self.timings.add("process_round", time.perf_counter() - t0,
-                             folder=self._folder_key(plan.folder))
+            with self.timings.stage("process_round",
+                                    folder=self._folder_key(plan.folder)):
+                if prev_im is None:
+                    prev_im = pipe.correct_reference(ims)
+                # one pass corrects, registers, fits AND returns the
+                # corrected drift channel as the next round's registration
+                # target: exactly one correction per round
+                res, prev_im = pipe.process_round_returning_ref(ims, prev_im)
+                prev_plan = plan
+                self._sync()
             step = res.drift.cpu().numpy()
             prev_cum = cum.copy()
             cum = cum + step

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import ExperimentConfig
 from ..device import resolve_device
 from ..ops.corrections import correct_channel_stack, deinterleave_stack
@@ -124,21 +125,23 @@ class FovPipeline:
     def correct(self, ims: torch.Tensor) -> torch.Tensor:
         """Correct a raw (C, Z, X, Y) stack (all channels)."""
         corr = self.cfg.correction
-        return correct_channel_stack(
-            ims, bleed_profile=self.bleed,
-            illumination_profile=self.illumination,
-            do_bleedthrough=corr.bleedthrough and self.bleed is not None,
-            sequential_channels=self.n_channels > 1,
-            **self._correct_kwargs())
+        with tracing.span("correct"):
+            return correct_channel_stack(
+                ims, bleed_profile=self.bleed,
+                illumination_profile=self.illumination,
+                do_bleedthrough=corr.bleedthrough and self.bleed is not None,
+                sequential_channels=self.n_channels > 1,
+                **self._correct_kwargs())
 
     def correct_one(self, im: torch.Tensor, ci: int) -> torch.Tensor:
         """Correct channel `ci`'s raw (Z, X, Y) stack on its own (no
         cross-channel stage)."""
         illum = (self.illumination[ci][None]
                  if self.illumination is not None else None)
-        return correct_channel_stack(
-            im[None], illumination_profile=illum, do_bleedthrough=False,
-            **self._correct_kwargs())[0]
+        with tracing.span("correct", channel=ci):
+            return correct_channel_stack(
+                im[None], illumination_profile=illum, do_bleedthrough=False,
+                **self._correct_kwargs())[0]
 
     def ref_spectra(self, ref_im: torch.Tensor) -> torch.Tensor:
         """Per-crop conditioned rFFT spectra (K, z, x, y//2+1) of the
@@ -153,41 +156,51 @@ class FovPipeline:
         """Consensus drift of a corrected drift-channel image against the
         reference (its corrected image, or its prepared spectra)."""
         dcfg = self.cfg.drift
-        spectra = ref if ref.is_complex() else self.ref_spectra(ref)
-        src_b = torch.stack([_crop(src_im, b) for b in self.crops])
+        with tracing.span("drift"):
+            spectra = ref if ref.is_complex() else self.ref_spectra(ref)
+            src_b = torch.stack([_crop(src_im, b) for b in self.crops])
 
-        def drifts(sl):
-            return subpixel_phase_correlation_prepared(
-                spectra[sl], src_b[sl], upsample_factor=dcfg.upsample_factor,
-                subtract_mean=dcfg.subtract_mean, window=dcfg.window)
+            def drifts(sl):
+                return subpixel_phase_correlation_prepared(
+                    spectra[sl], src_b[sl],
+                    upsample_factor=dcfg.upsample_factor,
+                    subtract_mean=dcfg.subtract_mean, window=dcfg.window)
 
-        # two-phase consensus, the reference's early exit
-        # (correction_tools/alignment.py:624-674): register the first
-        # `phase1_crops` crops; only when they disagree spend FFTs on the
-        # rest.  Reading the flag is one host synchronisation per round.
-        k = len(self.crops)
-        k1 = min(k, max(dcfg.min_good_drifts, dcfg.phase1_crops))
-        drifts1 = drifts(slice(0, k1))
-        out1, flag1 = consensus_drift(drifts1, drift_diff_th=dcfg.good_drift_th,
-                                      min_good_drifts=dcfg.min_good_drifts)
-        if k1 == k or int(flag1) == 0:
-            return out1, flag1
-        return consensus_drift(torch.cat([drifts1, drifts(slice(k1, k))]),
-                               drift_diff_th=dcfg.good_drift_th,
-                               min_good_drifts=dcfg.min_good_drifts)
+            # two-phase consensus, the reference's early exit
+            # (correction_tools/alignment.py:624-674): register the first
+            # `phase1_crops` crops; only when they disagree spend FFTs on
+            # the rest.  Reading the flag is one host synchronisation.
+            k = len(self.crops)
+            k1 = min(k, max(dcfg.min_good_drifts, dcfg.phase1_crops))
+            drifts1 = drifts(slice(0, k1))
+            out1, flag1 = consensus_drift(
+                drifts1, drift_diff_th=dcfg.good_drift_th,
+                min_good_drifts=dcfg.min_good_drifts)
+            if k1 == k:
+                return out1, flag1
+            with tracing.sync("drift_flag"):
+                agreed = int(flag1) == 0
+            if agreed:
+                return out1, flag1
+            return consensus_drift(
+                torch.cat([drifts1, drifts(slice(k1, k))]),
+                drift_diff_th=dcfg.good_drift_th,
+                min_good_drifts=dcfg.min_good_drifts)
 
     def fit_channel(self, im: torch.Tensor, th_seed: float
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Seed + fit one corrected channel -> (spots (N, 11), valid (N,))."""
         s, f = self.cfg.seed, self.cfg.fit
-        seeds = get_seeds(
-            im, max_num_seeds=s.max_num_seeds, th_seed=th_seed,
-            gfilt_size=s.gfilt_size,
-            background_gfilt_size=s.background_gfilt_size,
-            filt_size=s.filt_size, min_edge_distance=s.min_edge_distance,
-            use_dynamic_th=s.use_dynamic_th, dynamic_niters=s.dynamic_niters,
-            min_dynamic_seeds=s.min_dynamic_seeds,
-            cand_capacity=s.cand_capacity, pyramid_bg=s.pyramid_bg)
+        with tracing.span("seed"):
+            seeds = get_seeds(
+                im, max_num_seeds=s.max_num_seeds, th_seed=th_seed,
+                gfilt_size=s.gfilt_size,
+                background_gfilt_size=s.background_gfilt_size,
+                filt_size=s.filt_size, min_edge_distance=s.min_edge_distance,
+                use_dynamic_th=s.use_dynamic_th,
+                dynamic_niters=s.dynamic_niters,
+                min_dynamic_seeds=s.min_dynamic_seeds,
+                cand_capacity=s.cand_capacity, pyramid_bg=s.pyramid_bg)
         res = iter_fit_seed_points(
             im, seeds.coords.to(torch.float32), seeds.valid,
             radius=f.radius, min_w=f.min_w, max_w=f.max_w, init_w=f.init_w,
@@ -211,14 +224,15 @@ class FovPipeline:
         drift, flag = self.drift_of(corr_drift, ref)
         raw, fixed, valid = [], [], []
         for ci in self.fit_idx:
-            sp, va = self.fit_channel(channel_of(ci),
-                                      float(self.seed_thresholds[ci]))
-            raw.append(sp)
-            valid.append(va)
-            out = sp.clone()
-            out[:, 1:4] = warp_spot_coords(sp[:, 1:4], self.chromatic[ci],
-                                           self.chrom_center, drift)
-            fixed.append(out)
+            im = channel_of(ci)
+            with tracing.span("fit", channel=ci):
+                sp, va = self.fit_channel(im, float(self.seed_thresholds[ci]))
+                raw.append(sp)
+                valid.append(va)
+                out = sp.clone()
+                out[:, 1:4] = warp_spot_coords(sp[:, 1:4], self.chromatic[ci],
+                                               self.chrom_center, drift)
+                fixed.append(out)
         return RoundResult(spots=torch.stack(fixed), raw_spots=torch.stack(raw),
                            valid=torch.stack(valid), drift=drift,
                            drift_flag=flag), corr_drift
@@ -241,14 +255,16 @@ class FovPipeline:
     def process_round(self, ims, ref_im) -> RoundResult:
         """Process one round's raw (C, Z, X, Y) stack against the reference
         (the corrected image or its `prepare_reference` spectra)."""
-        return self._process_full(ims, ref_im)[0]
+        with tracing.span(tracing.ROUND):
+            return self._process_full(ims, ref_im)[0]
 
     def process_round_returning_ref(self, ims, ref_im
                                     ) -> Tuple[RoundResult, torch.Tensor]:
         """`process_round` that also returns the corrected drift-channel
         stack, for sequential drift mode where each round is the next
         round's registration target."""
-        return self._process_full(ims, ref_im)
+        with tracing.span(tracing.ROUND):
+            return self._process_full(ims, ref_im)
 
     def process_round_raw(self, raw, ref_im, rel_starts, n_colors,
                           donate: bool = True) -> RoundResult:
@@ -261,10 +277,13 @@ class FovPipeline:
         layout.  `donate` is accepted for the JAX package's signature: the
         round holds no reference to `raw` once it returns either way."""
         del donate
-        raw = torch.as_tensor(raw, device=self.device)
-        ims = deinterleave_stack(raw, tuple(int(s) for s in rel_starts),
-                                 int(n_colors), self.image_shape[0])
-        return self.process_round(ims, ref_im)
+        with tracing.span(tracing.ROUND):
+            with tracing.span("input"):
+                with tracing.sync("upload"):
+                    raw = torch.as_tensor(raw, device=self.device)
+                ims = deinterleave_stack(raw, tuple(int(s) for s in rel_starts),
+                                         int(n_colors), self.image_shape[0])
+            return self.process_round(ims, ref_im)
 
     def process_rounds(self, ims, ref_im, mesh=None) -> RoundResult:
         """Process (R, C, Z, X, Y) rounds -> a RoundResult whose fields
