@@ -185,9 +185,12 @@ Phases, each of which raises (exit code != 0) on a failed check:
 17. the span record (_tracing_phase), on 3-channel 30x2048x2048 rounds
    of bench.py's spots: spans on the profiler's clock, each round's count
    of its waits on the card equal to what
-   ``torch.cuda.set_sync_debug_mode("warn")`` reports and none outside a
-   sync span, outputs and device ops the same with it on and off, its
-   cost, and its rounds without the profiler and under it.
+   ``torch.cuda.set_sync_debug_mode("warn")`` reports, none outside a
+   sync span and none at a site other than ``refit_check``,
+   ``drift_flag`` or ``upload``, no device constant built after the
+   warm-up round (``const_builds``), outputs and device ops the same with
+   it on and off, its cost, and its rounds without the profiler and under
+   it.
 
 The script's whole time, then the last three lines: a JSON object
 describing each kernel, the card's name and power limit, and ``{"ok":
@@ -6570,6 +6573,8 @@ def _profile_round(torch, pipe, raw, ref_im, smi: str) -> dict:
 #: rounds of each path the tracing phase counts, and spans it times
 TRACE_ROUNDS = 3
 TRACE_SPANS = 2000
+#: the only places a round may wait on the card
+WAIT_SITES = {"refit_check", "drift_flag", "upload"}
 
 
 def _tracing_phase(torch, smi: str, dev, shape=DUAL_SHAPE,
@@ -6583,10 +6588,13 @@ def _tracing_phase(torch, smi: str, dev, shape=DUAL_SHAPE,
     fitted), through ``process_round`` and through ``process_round_raw``
     from pinned raw windows: the synchronising calls that
     ``torch.cuda.set_sync_debug_mode("warn")`` reports inside the rounds,
-    recording off and on, equal each other and the rounds' own count, and
-    none falls outside a sync span; every output ``torch.equal`` with
-    recording on and off; each round's correct, drift, input and fit event
-    intervals against its round's.  (c) One profiled round with the record
+    recording off and on, equal each other and the rounds' own count, none
+    falls outside a sync span, and every sync span is one of WAIT_SITES
+    (the host reads a value that decides what it launches next, or
+    uploads); the rounds, after a warm-up round of the same shapes, build
+    no device constant (``const_builds`` 0); every output ``torch.equal``
+    with recording on and off; each round's correct, drift, input and fit
+    event intervals against its round's.  (c) One profiled round with the record
     on and one with it held off (the same round): the same device ops, by
     name and count.  (d) The cost: a span and a sync span with recording
     off, and on (two CUDA events), over TRACE_SPANS; rounds/s with
@@ -6713,6 +6721,7 @@ def _tracing_phase(torch, smi: str, dev, shape=DUAL_SHAPE,
         rounds = tracing.record().rounds
         syncs = sum(spans[0].attrs["syncs"] for spans in rounds)
         unmarked = sum(spans[0].attrs["unmarked_syncs"] for spans in rounds)
+        builds = [spans[0].attrs["const_builds"] for spans in rounds]
         by_site = collections.Counter(
             s.attrs["site"] for spans in rounds for s in spans
             if s.name == "sync")
@@ -6728,6 +6737,7 @@ def _tracing_phase(torch, smi: str, dev, shape=DUAL_SHAPE,
         p = rec["paths"][name] = {
             "debug_syncs_off": n_off, "debug_syncs_on": n_on,
             "round_syncs": syncs, "unmarked_syncs": unmarked,
+            "const_builds": builds,
             "per_round": syncs / TRACE_ROUNDS, "sync_spans": dict(by_site),
             "debug_sites": dict(on_sites), "outputs_equal": same,
             "parts_over_round": ratio,
@@ -6736,10 +6746,12 @@ def _tracing_phase(torch, smi: str, dev, shape=DUAL_SHAPE,
         print(f"tracing: {name}, {TRACE_ROUNDS} rounds: {n_off} synchronising "
               f"calls off, {n_on} on, the rounds count {syncs} "
               f"({p['per_round']:.1f} a round), {unmarked} outside a sync "
-              f"span; outputs equal {same}; stages over the round's event "
-              f"interval {[round(v, 4) for v in ratio]}; sync spans by site "
+              f"span; const_builds {builds}; outputs equal {same}; stages "
+              f"over the round's event interval "
+              f"{[round(v, 4) for v in ratio]}; sync spans by site "
               f"{dict(by_site)}  [{smi}]")
-        if not (n_off == n_on == syncs and unmarked == 0 and same):
+        if not (n_off == n_on == syncs and unmarked == 0 and same
+                and set(by_site) <= WAIT_SITES and not any(builds)):
             raise AssertionError(f"tracing: {name}: {p}")
 
     # ---- (c) no device op from the record ---------------------------------
@@ -6797,13 +6809,15 @@ def _tracing_phase(torch, smi: str, dev, shape=DUAL_SHAPE,
     def summary(rounds):
         """Medians over recorded rounds: the round's host ms, the host's
         own (less its sync spans), its syncs, and event intervals (ms a
-        round; a fit's and a seeding's, ms a channel)."""
+        round; a fit's and a seeding's, ms a channel); the device
+        constants the rounds built, in all."""
         med = statistics.median
         out = {"rounds": len(rounds),
                "round_host_ms": med(g[0].host_ms for g in rounds),
                "host_own_ms": med(g[0].host_ms - sum(
                    s.host_ms for s in g if s.name == "sync") for g in rounds),
                "syncs": med(g[0].attrs["syncs"] for g in rounds),
+               "const_builds": sum(g[0].attrs["const_builds"] for g in rounds),
                "round_event_ms": med(g[0].device_ms for g in rounds)}
         for name in ("correct", "drift"):
             out[name + "_event_ms"] = med(sum(

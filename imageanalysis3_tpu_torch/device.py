@@ -4,12 +4,31 @@ The default device is the CUDA card; without one, an entry point raises
 unless the caller asks for the CPU (``device="cpu"``).  NumPy inputs go to
 that device; tensors stay where they are, and their device then picks
 kernel or plain version.
+
+Small constants an op builds on the host (index maps, band matrices,
+weights) are copied to their device once and kept
+(:func:`device_constant`): a copy from pageable host memory makes the host
+wait for the card, and a round would otherwise wait at each such copy.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+from typing import Callable
+
 import numpy as np
 import torch
+
+from . import tracing
+
+#: the most constants, and the most bytes of them, kept over all devices;
+#: the least recently used go first
+CONST_ENTRIES = 256
+CONST_BYTES = 256 << 20
+
+_consts: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_consts_lock = threading.Lock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,3 +56,31 @@ def host_array(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def device_constant(key: tuple, dtype: torch.dtype, device,
+                    build: Callable) -> torch.Tensor:
+    """The constant `build()` (anything ``torch.as_tensor`` takes) as a
+    `dtype` tensor on `device`, built and copied there on the first call
+    for (`key`, `dtype`, `device`) and the same tensor on every later one.
+    `key` holds everything the value depends on.  Callers never write into
+    the tensor.  Each build counts one ``const_builds`` (``tracing``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    k = (key, dtype, dev)
+    with _consts_lock:
+        t = _consts.get(k)
+        if t is not None:
+            _consts.move_to_end(k)
+            return t
+        t = torch.as_tensor(build(), dtype=dtype).to(dev, copy=True)
+        tracing.count("const_builds")
+        size = t.untyped_storage().nbytes()
+        if size <= CONST_BYTES:
+            _consts[k] = t
+            total = sum(v.untyped_storage().nbytes() for v in _consts.values())
+            while len(_consts) > CONST_ENTRIES or total > CONST_BYTES:
+                _, old = _consts.popitem(last=False)
+                total -= old.untyped_storage().nbytes()
+        return t

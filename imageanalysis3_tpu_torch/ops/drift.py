@@ -22,11 +22,16 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import tracing
-from ..device import as_tensor
+from ..device import as_tensor, device_constant
 from .filters import full_f32_matmul
 
 _DIMS = (-3, -2, -1)
+
+
+def _two_pi(dev) -> torch.Tensor:
+    """2*pi as a float32 0-dim tensor on `dev`."""
+    return device_constant(("two_pi",), torch.float32, dev,
+                           lambda: 2 * math.pi)
 
 
 def _axis_kernel(n: int, npoints: int, center: torch.Tensor,
@@ -44,9 +49,7 @@ def _axis_kernel(n: int, npoints: int, center: torch.Tensor,
     offs = (torch.arange(npoints, device=dev, dtype=torch.float32) - m) \
         / upsample
     s = center[:, None] + offs[None, :]                        # (K, np)
-    with tracing.sync("dft_const"):
-        two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device=dev)
-    theta = (two_pi * s)[..., None] * freqs / n
+    theta = (_two_pi(dev) * s)[..., None] * freqs / n
     return torch.polar(torch.ones_like(theta), theta)
 
 
@@ -68,14 +71,17 @@ def _upsampled_argmax(R: torch.Tensor, ny_full: int, center: torch.Tensor,
     offs = (torch.arange(npoints, device=dev, dtype=torch.float32) - m) \
         / upsample
     s = center[:, 2, None] + offs[None, :]
-    with tracing.sync("dft_const"):
-        two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device=dev)
-    theta = (two_pi * s)[..., None] * freqs_y / ny_full
-    w = torch.full((ny_half,), 2.0, device=dev)
-    with tracing.sync("dft_weights"):
+    theta = (_two_pi(dev) * s)[..., None] * freqs_y / ny_full
+
+    def y_weights():
+        w = torch.full((ny_half,), 2.0)
         w[0] = 1.0
         if ny_full % 2 == 0:
             w[-1] = 1.0
+        return w
+
+    w = device_constant(("dft_y_weights", ny_half, ny_full % 2),
+                        torch.float32, dev, y_weights)
     Wy = torch.polar(torch.ones_like(theta), theta) * w
     # full f32 whatever the caller's TF32 setting (the reference: HIGHEST)
     with full_f32_matmul():
@@ -131,8 +137,8 @@ def _phase_correlate_spectrum(F_ref, F_mov, shape, upsample_factor,
     z, x, y = shape
     peak = torch.stack([flat // (x * y), (flat // y) % x, flat % y],
                        dim=1).to(torch.float32)
-    with tracing.sync("peak_size"):
-        size = torch.tensor(shape, dtype=torch.float32, device=cc.device)
+    size = device_constant(("size",) + tuple(shape), torch.float32,
+                           cc.device, lambda: list(shape))
     shift = torch.where(peak > size / 2, peak - size, peak)
     if upsample_factor <= 1:
         return shift
@@ -247,26 +253,25 @@ def consensus_drift(drifts: torch.Tensor, drift_diff_th: float = 1.0,
     d2 = ((drifts[:, None] - drifts[None, :]) ** 2).sum(dim=-1)
     agree = d2 <= drift_diff_th ** 2       # includes self (diagonal)
     counts = agree.to(torch.int32).sum(dim=1)
-    best = counts.argmax()
-    with tracing.sync("consensus_index"):
-        n_good = counts[best]
-        group = agree[best]
+    # every index stays on the device: indexing by a 0-dim index tensor
+    # would read it on the host
+    best = counts.argmax().view(1)
+    n_good = counts.index_select(0, best)[0]
+    group = agree.index_select(0, best)[0]
     good_mean = torch.where(group[:, None], drifts, 0.0).sum(dim=0) \
         / n_good.to(torch.float32).clamp_min(1.0)
     eye = torch.eye(k, dtype=torch.bool, device=drifts.device)
     d2 = torch.where(eye, float("inf"), d2)
     pair_flat = d2.reshape(-1).argmin()
-    i, j = pair_flat // k, pair_flat % k
-    # indexing by a 0-dim index tensor reads it on the host
-    with tracing.sync("consensus_index"):
-        third_score = d2[:, i] + d2[:, j]
-        third_score[i] = float("inf")
-        third_score[j] = float("inf")
-    t = third_score.argmin()
+    ij = torch.stack([pair_flat // k, pair_flat % k])
+    d2_ij = d2.index_select(1, ij)
+    third_score = (d2_ij[:, 0] + d2_ij[:, 1]).index_fill_(0, ij,
+                                                           float("inf"))
+    t = third_score.argmin().view(1)
+    di, dj, dt = drifts.index_select(0, torch.cat([ij, t]))
     # times the f32 reciprocal: the product XLA evaluates for the JAX
     # package's `/ 3.0`, so both packages give the same bits
-    with tracing.sync("consensus_index"):
-        fallback = (drifts[i] + drifts[j] + drifts[t]) * (1.0 / 3.0)
+    fallback = (di + dj + dt) * (1.0 / 3.0)
     ok = n_good >= min_good_drifts
     out = torch.where(ok, good_mean, fallback)
     flag = torch.where(ok, 0, 1).to(torch.int32)

@@ -23,7 +23,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-from .. import tracing
+from ..device import device_constant
 
 
 def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
@@ -140,9 +140,9 @@ def _pad_axis(im: torch.Tensor, axis: int, lo: int, hi: int,
         out = torch.full(shape, fill, dtype=im.dtype, device=im.device)
         out.narrow(axis, lo, n).copy_(im)
         return out
-    idx = _map_boundary_index(np.arange(-lo, n + hi), n, mode)
-    with tracing.sync("pad_index"):
-        idx = torch.from_numpy(idx).to(im.device)
+    idx = device_constant(
+        ("pad_index", n, lo, hi, mode), torch.int64, im.device,
+        lambda: _map_boundary_index(np.arange(-lo, n + hi), n, mode))
     return im.index_select(axis, idx)
 
 
@@ -170,9 +170,9 @@ def _conv1d_along_axis(im: torch.Tensor, kernel: np.ndarray, axis: int,
     n = im.shape[axis]
     if k <= 9 and n > k:
         return _shift_add(im, kernel, axis, mode)
-    with tracing.sync("band_matrix"):
-        w = torch.from_numpy(_band_matrix(n, tuple(kernel.tolist()), mode)
-                             ).to(im.device)
+    taps = tuple(kernel.tolist())
+    w = device_constant(("band_matrix", n, taps, mode), torch.float32,
+                        im.device, lambda: _band_matrix(n, taps, mode))
     moved = im.movedim(axis, -1)
     with full_f32_matmul():
         return torch.matmul(moved, w.T).movedim(-1, axis)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..device import as_tensor
+from ..device import as_tensor, device_constant
 from .filters import counting_median
 from .gather_kernel import ball_offsets, gather_ball
 from .lm_kernel import (geometry_jacobian, lm_fit, lm_fit_plain,
@@ -127,9 +127,9 @@ def init_params(pixels: torch.Tensor, mask: torch.Tensor,
             / wsum.clamp_min(1e-12)[:, None]
         u = ((c0 - center_est) / delta[:, None]).clamp(-0.9, 0.9)
         cp = torch.where(wsum[:, None] > 1e-6, -2.0 * torch.atanh(u), 0.0)
-    with tracing.sync("fit_init_rest"):
-        rest = torch.tensor([wg, wg, wg, 0.0, 0.0], dtype=torch.float32,
-                            device=pixels.device).expand(n, 5)
+    rest = device_constant(("fit_init_rest", wg), torch.float32,
+                           pixels.device,
+                           lambda: [wg, wg, wg, 0.0, 0.0]).expand(n, 5)
     return torch.cat([bk[:, None], h[:, None], cp, rest], dim=1)
 
 
@@ -396,13 +396,12 @@ def iter_fit_seed_points(im: torch.Tensor, seeds_zxy: torch.Tensor,
 
     # validity: seed valid, finite row, center strictly inside image
     finite = torch.isfinite(nat).all(dim=1)
-    with tracing.sync("fit_image_size"):
-        size = torch.tensor(imf.shape, dtype=f32, device=dev)
+    size = device_constant(("size",) + tuple(imf.shape), f32, dev,
+                           lambda: list(imf.shape))
     inside = ((nat[:, 1:4] > 0) & (nat[:, 1:4] < size)).all(dim=1)
     enough_px = base_mask.to(torch.int32).sum(dim=1) > 10
     valid = seeds_valid & finite & inside & enough_px
-    with tracing.sync("fit_rounds"):
-        n_rounds = torch.tensor(rounds_done, dtype=torch.int32, device=dev)
+    n_rounds = torch.full((), rounds_done, dtype=torch.int32, device=dev)
     return FitResult(spots=nat, valid=valid, converged=converged,
                      n_rounds=n_rounds, n_contested=n_contested)
 

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import tracing
+from ..device import device_constant
 from .filters import (_pad_axis, _window_reduce_interior, gaussian_filter,
                       maximum_filter, minimum_filter)
 from .seed_kernels import (dual_gaussian_blur, fused_seed_classify,
@@ -116,8 +116,8 @@ def _classify_from_blurs(max_im, min_im, th_seed, x0, core_x: int,
         qualify = local_max
 
     # level(p) = smallest i with diff >= th*(1 - i/n); th clamped positive
-    th = torch.tensor(float(max(np.float32(th_seed), np.float32(1e-6))),
-                      dtype=torch.float32, device=dev)
+    th = torch.full((), float(max(np.float32(th_seed), np.float32(1e-6))),
+                    dtype=torch.float32, device=dev)
     frac = 1.0 - diff[qualify] / th
     level = torch.ceil(frac * n_lvl).clamp(0, n_lvl).to(torch.int64)
     hist = torch.bincount(level, minlength=n_lvl + 1)[:n_lvl]
@@ -203,8 +203,8 @@ def get_seeds(im: torch.Tensor,
     reach = cum >= min_dynamic_seeds
     chosen = torch.where(reach.any(), reach.to(torch.int32).argmax(),
                          n_lvl - 1)
-    with tracing.sync("seed_threshold"):
-        th = torch.tensor(th_f, dtype=torch.float32, device=dev)
+    # a fill, not a copy from the host: th_f is a float32 value
+    th = torch.full((), th_f, dtype=torch.float32, device=dev)
     chosen_f = chosen.to(torch.float32)
     chosen_th = th * (1.0 - chosen_f / n_lvl)
 
@@ -251,9 +251,8 @@ def get_seeds(im: torch.Tensor,
     brem = block_idx % (x2 * y2)
     bx = brem // y2
     by = brem % y2
-    with tracing.sync("block_offsets"):
-        offs = torch.as_tensor(np.indices((2, 2, 2)).reshape(3, 8).T,
-                               device=dev)                        # (8, 3)
+    offs = device_constant(("block_offsets",), torch.int64, dev,
+                           lambda: np.indices((2, 2, 2)).reshape(3, 8).T)
     cz = bz[:, None] * 2 + offs[None, :, 0]
     cx = bx[:, None] * 2 + offs[None, :, 1]
     cy = by[:, None] * 2 + offs[None, :, 2]

@@ -19,9 +19,13 @@ it is open (attribute ``syncs``): it turns on
 ``torch.cuda.set_sync_debug_mode("warn")`` and counts the warning torch
 gives at each synchronising call instead of showing it (it is shown only
 if the mode was on before), and counts as ``unmarked_syncs`` those outside
-any ``sync`` span, whose waits the round's host time then holds.  The
-count covers every thread of the process; rounds are recorded from one
-thread at a time.
+any ``sync`` span, whose waits the round's host time then holds.  It also
+holds, under each name of :data:`COUNTERS`, how much that counter
+(:func:`count`) grew while it was open: ``const_builds``, the device
+constants built and copied to their device (``device.device_constant``), 0
+once earlier calls on the same shapes have built them.  The counts cover
+every thread of the process; rounds are recorded from one thread at a
+time.
 
 Recording is on while ``torch.profiler`` profiles
 (``torch.autograd._profiler_enabled()``) or inside ``with recording():``.
@@ -54,8 +58,8 @@ from typing import Any, Deque, Dict, List, NamedTuple, Optional
 import torch
 
 __all__ = ["Span", "Record", "StageTimes", "span", "sync", "recording",
-           "record", "clear", "MAX_ROUNDS", "MAX_LOOSE", "ROUND", "SYNC",
-           "SYNC_WARNING"]
+           "record", "clear", "count", "MAX_ROUNDS", "MAX_LOOSE", "ROUND",
+           "SYNC", "SYNC_WARNING", "COUNTERS"]
 
 #: rounds the record keeps (oldest dropped first)
 MAX_ROUNDS = 64
@@ -66,6 +70,9 @@ ROUND, SYNC = "round", "sync"
 #: the text of torch's warning at a synchronising call under
 #: ``torch.cuda.set_sync_debug_mode("warn")``
 SYNC_WARNING = "called a synchronizing CUDA operation"
+#: the process's counters (:func:`count`), each a recorded round's
+#: attribute of the same name
+COUNTERS = ("const_builds",)
 
 _profiler_enabled = torch.autograd._profiler_enabled
 
@@ -81,6 +88,7 @@ class _Recorder:
         self.loose: Deque["Span"] = deque(maxlen=MAX_LOOSE)
         self.round_ids = itertools.count()
         self.local = threading.local()
+        self.counts = dict.fromkeys(COUNTERS, 0)
 
     def stack(self) -> list:
         st = getattr(self.local, "stack", None)
@@ -150,7 +158,7 @@ class Span:
     belongs to (None outside a round)."""
 
     __slots__ = ("name", "attrs", "parent", "round", "start_ns", "end_ns",
-                 "_events", "_device_ms", "_group", "_syncs")
+                 "_events", "_device_ms", "_group", "_syncs", "_counts")
 
     def __init__(self, name: str, attrs: Dict[str, Any]):
         self.name, self.attrs = name, attrs
@@ -161,6 +169,7 @@ class Span:
         self._device_ms: Optional[float] = None
         self._group: Optional[list] = None
         self._syncs: Optional[_SyncCount] = None
+        self._counts: Optional[Dict[str, int]] = None
 
     def __enter__(self) -> "Span":
         stack = _REC.stack()
@@ -171,6 +180,7 @@ class Span:
             self._group = []
             _REC.rounds.append(self._group)
             self._syncs = _SyncCount().__enter__()
+            self._counts = dict(_REC.counts)
         elif parent is not None:
             self.round, self._group = parent.round, parent._group
         if self._group is not None:
@@ -196,6 +206,8 @@ class Span:
             self.attrs["syncs"] = self._syncs.n
             self.attrs["unmarked_syncs"] = self._syncs.unmarked
             self._syncs = None
+            for name, n in _REC.counts.items():
+                self.attrs[name] = n - self._counts[name]
         return False
 
     @property
@@ -238,6 +250,13 @@ def sync(site: str):
     if _REC.forced > 0 or _profiler_enabled():
         return Span(SYNC, {"site": site})
     return _NO_SPAN
+
+
+def count(name: str) -> None:
+    """Add one to the counter `name` (one of :data:`COUNTERS`), recording
+    or not."""
+    with _REC.lock:
+        _REC.counts[name] += 1
 
 
 @contextlib.contextmanager

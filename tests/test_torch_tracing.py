@@ -228,7 +228,7 @@ def test_a_round_counts_its_waits_on_the_card():
                         warnings.warn(tracing.SYNC_WARNING)
                 warnings.warn("something else")
         warnings.warn(tracing.SYNC_WARNING)       # no round open
-    assert rnd.attrs == {"syncs": 3, "unmarked_syncs": 1}
+    assert rnd.attrs == {"syncs": 3, "unmarked_syncs": 1, "const_builds": 0}
     assert [str(w.message) for w in shown] == ["something else",
                                                tracing.SYNC_WARNING]
     assert warnings.filters == filters
