@@ -56,7 +56,14 @@ Phases, each of which raises (exit code != 0) on a failed check:
    seed_classify on every data channel, fitted, then decoded by
    ``DNAMerfishDecoder`` into 300 homolog region traces; >= 285 regions
    assigned, median trace error <= 1.25x the planted-jitter floor, median
-   drift error <= 0.1 px;
+   drift error <= 0.1 px; the decode's spans under the timing record
+   (event intervals, candidates, groups, waits on the card), its outputs
+   equal with the record on; then the summation order's gate
+   (``--only lm_order``): each data channel of the scene's first 3
+   rounds, seeded by the path, its round-0 and refit LM batches under
+   ``_check_lm`` with a spot decided by the order when another order of
+   its pixels moves its plain fit beyond 5e-4 px (at most 0.5 %), every
+   other spot held to 1e-3 px;
 6. the bead-calibration path on ``synthetic.make_calibration_scene``'s
    60x2048x2048 stacks: (a) ``IlluminationProfiler`` over 4 flat-field
    stacks (interior error < 0.05); (b) ``generate_bleed_profile_from_rounds``
@@ -1110,6 +1117,7 @@ def _e2e_phase(torch, smi: str) -> dict:
     t_decode = time.perf_counter() - t0
     if out is None:
         raise AssertionError("e2e: the keep-ratio gate refused the cell")
+    decode_spans = _decode_spans(torch, dec, spots, bits, out, smi)
     # the decoded groups, for phase 9's self-scores: the spot table padded
     # as the decoder padded it, positions in nm
     n_pad = len(dec.spot_groups.spot_usage)
@@ -1171,6 +1179,7 @@ def _e2e_phase(torch, smi: str) -> dict:
             "decode_stage_seconds": dict(dec.stage_seconds),
             "decode_first_call_seconds": t_decode_first,
             "decode_first_stage_seconds": first_stages,
+            "decode_spans": decode_spans,
             "candidate_spots": int(len(spots)),
             "regions_assigned": n_assigned, "regions_total": n_regions,
             "median_trace_err_nm": med_err,
@@ -1180,6 +1189,39 @@ def _e2e_phase(torch, smi: str) -> dict:
             "seed_classify_launches": sum(c["seed_classify"]
                                           for c in launches),
             "decoded": decoded}
+
+
+def _decode_spans(torch, dec, spots, bits, out, smi: str) -> dict:
+    """One more decode under the timing record: the ``decode`` span's and
+    its ``tuples`` and ``homolog`` spans' event intervals and host times,
+    its candidates, groups and waits on the card (counted; unlike a
+    round's, they need not sit in sync spans: the decode's host loops read
+    the card by design); the outputs equal to the unrecorded decode's."""
+    from imageanalysis3_tpu_torch import tracing
+
+    tracing.clear()
+    with tracing.recording():
+        again = dec.decode(spots, bits)
+    spans = {sp.name: sp for sp in tracing.record().loose}
+    tracing.clear()
+    if sorted(again) != sorted(out) or any(
+            not torch.equal(torch.nan_to_num(getattr(again[c], f)),
+                            torch.nan_to_num(getattr(out[c], f)))
+            for c in out for f in ("zxys", "zxys_valid", "sel_group")):
+        raise AssertionError("e2e: the decode's outputs differ with the "
+                             "timing record on")
+    top = spans["decode"]
+    rec = {name: {"device_ms": sp.device_ms, "host_ms": sp.host_ms}
+           for name, sp in spans.items()}
+    rec["attrs"] = dict(top.attrs)
+    print(f"e2e decode spans: decode {rec['decode']['device_ms']:.2f} ms "
+          f"(host {rec['decode']['host_ms']:.2f}), tuples "
+          f"{rec['tuples']['device_ms']:.2f}, homolog "
+          f"{rec['homolog']['device_ms']:.2f} ms; candidates "
+          f"{top.attrs['candidates']}, groups {top.attrs['groups']}, waits "
+          f"on the card {top.attrs['syncs']} ({top.attrs['unmarked_syncs']} "
+          f"outside a sync span)  [{smi}]")
+    return rec
 
 
 #: the gather's launch shapes on the paths: (seed capacity, fit radius) of
@@ -1425,7 +1467,8 @@ def _lm_refit(torch, r0: dict, prm, eps):
             prm[sel].contiguous(), min_w, max_w, max(8, lm_iters // 3)), sel
 
 
-def _check_lm(torch, label, lm_in, svalid, base, shape):
+def _check_lm(torch, label, lm_in, svalid, base, shape, order_px=None,
+              cap=None):
     """lm_fit kernel against its plain version on one batch: finite
     outputs; then, on every valid spot whose fit the summation order does
     not decide, identical valid masks, centres within 1e-3 px, heights
@@ -1434,9 +1477,11 @@ def _check_lm(torch, label, lm_in, svalid, base, shape):
     other orders (reversed, rotated by half), moves beyond those
     tolerances or changes its validity: such spots (an LM step whose
     accept or reject turns on rounding) are named and counted, and more
-    than max(2, 1 %) of the valid spots fails the check.  Returns
-    (max |dcentre| over the held spots, n valid, the plain version's
-    (params, eps), the order-decided spots)."""
+    than max(2, 1 %) of the valid spots fails the check.  A caller may
+    state its own rule: `order_px`, a centre move that marks a spot as
+    decided in place of 1e-3 px, and `cap`, the most decided spots
+    allowed.  Returns (max |dcentre| over the held spots, n valid, the
+    plain version's (params, eps), the order-decided spots)."""
     from imageanalysis3_tpu_torch.ops import gaussian_fit as gf
     from imageanalysis3_tpu_torch.ops import lm_kernel
 
@@ -1456,10 +1501,10 @@ def _check_lm(torch, label, lm_in, svalid, base, shape):
               & (base.sum(dim=1) > 10))
         return nat, ok
 
-    def apart(a, va, b, vb):
+    def apart(a, va, b, vb, centre=1e-3):
         """Spots on which two fits differ beyond the tolerances."""
         return ((va != vb) | ((va & vb) & (
-            ((a[:, 1:4] - b[:, 1:4]).abs() > 1e-3).any(dim=1)
+            ((a[:, 1:4] - b[:, 1:4]).abs() > centre).any(dim=1)
             | ((a[:, 0] - b[:, 0]).abs() > 1e-2 * b[:, 0].abs())
             | ((a[:, 5:8] - b[:, 5:8]).abs() > 1e-3).any(dim=1))))
 
@@ -1472,10 +1517,10 @@ def _check_lm(torch, label, lm_in, svalid, base, shape):
         perm = perm.to(pk.device)
         po, eo = lm_kernel.lm_fit_plain(lm_in[0][:, perm], lm_in[1][:, perm],
                                         lm_in[2][:, perm], *lm_in[3:])
-        decided |= apart(*natural(po, eo), npl, vp)
+        decided |= apart(*natural(po, eo), npl, vp, order_px or 1e-3)
     held = ~decided
     names = torch.nonzero(decided & (vp | vk)).flatten().tolist()
-    if len(names) > max(2, int(vp.sum()) // 100):
+    if len(names) > (max(2, int(vp.sum()) // 100) if cap is None else cap):
         raise AssertionError(f"lm_fit {label}: {len(names)} spots are "
                              f"decided by the summation order: {names}")
     if not torch.equal(vk[held], vp[held]):
@@ -1637,6 +1682,92 @@ def _lm_fit_report(torch, smi: str) -> dict:
         f"memory a spot, {o['blocks_per_sm']} spots = {o['warps_per_sm']} "
         f"warps per SM" for p, o in occ.items()) + f"  [{smi}]")
     return {"ptxas": ptxas, "occupancy": occ}
+
+
+#: a spot's fit depends on the summation order when another order of its
+#: pixels moves its centre more than this (px): 4 float32 ulps at
+#: 1024-2048 px, where a well-conditioned fit moves by at most 1
+LM_ORDER_SENSITIVE = 5e-4
+#: the most spots of an e2e-path batch (in 1000, and 2) whose fit the
+#: order may decide under that rule: 0-1 a batch of ~1000-1500 on the
+#: path's seeds (PERF.md §6)
+LM_ORDER_CAP = 5
+
+
+def _lm_order_phase(torch, smi: str, rounds: int = 3) -> dict:
+    """The lm_fit kernel on the e2e path's own seeds, under the summation
+    order's rule: each data channel of ``make_e2e_scene()``'s first
+    `rounds` rounds, corrected and seeded by the exact classifier as
+    phase 5 runs them, gathered as round 0 builds its LM batch and as the
+    first Jacobi round builds its refit batch; each batch under
+    `_check_lm` with a spot decided by the order when another order of
+    its pixels moves its plain fit beyond LM_ORDER_SENSITIVE, at most
+    LM_ORDER_CAP in 1000 of the valid spots (and 2) so decided, every
+    other spot held to the kernel's tolerances (centres 1e-3 px).  On
+    this scene single ill-conditioned fits (blends of close spots) move
+    up to ~0.7 px with the order alone, the kernel's like the plain
+    version's (PERF.md §6); this gate holds the kernel to moving
+    no other spot."""
+    from imageanalysis3_tpu_torch import synthetic as syn
+    from imageanalysis3_tpu_torch.config import (ExperimentConfig, FitConfig,
+                                                 SeedConfig)
+    from imageanalysis3_tpu_torch.ops import lm_kernel
+    from imageanalysis3_tpu_torch.ops.seeding import get_seeds
+    from imageanalysis3_tpu_torch.pipeline import FovPipeline
+
+    t0 = time.perf_counter()
+    scene = syn.make_e2e_scene()
+    n_data = scene.n_data_ch
+    cfg = ExperimentConfig(
+        image_size=scene.shape,
+        seed=SeedConfig(th_seed=300.0, max_num_seeds=4096, pyramid_bg=False),
+        fit=FitConfig())
+    pipe = FovPipeline(cfg, n_channels=n_data + 1, drift_channel_index=n_data,
+                       fit_channel_indices=tuple(range(n_data)),
+                       image_shape=scene.shape)
+    s, f = cfg.seed, cfg.fit
+    batches = []
+    for r in range(rounds):
+        ims = scene.round_stack(r)
+        for ci in range(n_data):
+            im = pipe.correct_one(ims[ci], ci)
+            seeds = get_seeds(
+                im, max_num_seeds=s.max_num_seeds,
+                th_seed=float(pipe.seed_thresholds[ci]),
+                gfilt_size=s.gfilt_size,
+                background_gfilt_size=s.background_gfilt_size,
+                filt_size=s.filt_size, min_edge_distance=s.min_edge_distance,
+                use_dynamic_th=s.use_dynamic_th,
+                dynamic_niters=s.dynamic_niters,
+                min_dynamic_seeds=s.min_dynamic_seeds,
+                cand_capacity=s.cand_capacity, pyramid_bg=s.pyramid_bg)
+            r0 = _lm_round0(torch, im, seeds.coords.to(torch.float32),
+                            seeds.valid, f.radius, f.lm_iters)
+            pp, ep = lm_kernel.lm_fit_plain(*r0["lm_in"])
+            lm_in, sel = _lm_refit(torch, r0, pp, ep)
+            for label, args in (
+                    ("round 0", (r0["lm_in"], r0["svalid"], r0["base"])),
+                    ("refit", (lm_in, r0["svalid"][sel], r0["base"][sel]))):
+                n_valid = int(args[1].sum())
+                err, _, _, decided = _check_lm(
+                    torch, f"e2e path r{r} c{ci} {label}", *args,
+                    tuple(im.shape), order_px=LM_ORDER_SENSITIVE,
+                    cap=max(2, n_valid * LM_ORDER_CAP // 1000))
+                batches.append({"round": r, "channel": ci, "batch": label,
+                                "valid": n_valid, "decided": decided,
+                                "max_abs_err": err})
+            del im, seeds, r0, lm_in
+        del ims
+    most = max(len(b["decided"]) / max(b["valid"], 1) for b in batches)
+    print(f"lm order: PASS  {len(batches)} e2e-path batches ({rounds} rounds "
+          f"x {n_data} channels, round 0 and refit); decided by the order "
+          f"(another order moves the plain fit > {LM_ORDER_SENSITIVE} px) "
+          f"{[len(b['decided']) for b in batches]} of "
+          f"{[b['valid'] for b in batches]} valid (most {1000 * most:.2f} "
+          f"in 1000, cap {LM_ORDER_CAP}); held spots' max |dcentre| "
+          f"{max(b['max_abs_err'] for b in batches):.3g} px  [{smi}]",
+          flush=True)
+    return {"batches": batches, "seconds": time.perf_counter() - t0}
 
 
 def _calibration_phase(torch, smi: str) -> dict:
@@ -6878,7 +7009,8 @@ def main(argv=None) -> int:
                                        "cell_spots", "analysis",
                                        "segmentation", "parallel",
                                        "library", "parallel_ranks",
-                                       "legacy", "figures", "tracing"],
+                                       "legacy", "figures", "tracing",
+                                       "lm_order"],
                     help="build this kernel alone and run its checks and "
                          "timings on the bench scene, nothing else (no "
                          "paths, no final ok line); gather_blocks times "
@@ -6895,7 +7027,9 @@ def main(argv=None) -> int:
                          "the sharded round across 4 cards (needs 4), "
                          "legacy the per-cell path's three kernels and "
                          "phase 15, figures the same three and phase 16, "
-                         "tracing slice 1's three kernels and phase 17")
+                         "tracing slice 1's three kernels and phase 17, "
+                         "lm_order the exact path's three kernels and the "
+                         "summation-order readings of phase 5")
     args = ap.parse_args(argv)
     t_script = time.perf_counter()
 
@@ -6937,6 +7071,7 @@ def main(argv=None) -> int:
             "parallel": list(PYRAMID_PATH), "library": [],
             "parallel_ranks": ["lm_fit"], "legacy": list(LEGACY_PATH),
             "figures": list(LEGACY_PATH), "tracing": list(PYRAMID_PATH),
+            "lm_order": list(CELL_PATH),
             None: list(_build.KERNELS)}.get(args.only, [args.only])
     build_s = _build.build(only)
     print(f"kernel build: {build_s:.2f} s")
@@ -6981,6 +7116,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "tracing":
         print(json.dumps(_tracing_phase(torch, smi, dev)))
+        return 0
+    if args.only == "lm_order":
+        _lm_order_phase(torch, smi)
         return 0
 
     # ---- scene (bench.py's) ---------------------------------------------
@@ -7177,6 +7315,9 @@ def main(argv=None) -> int:
     # ---- 5. the end-to-end path (exact classifier) ------------------------
     record["e2e"] = e2e = _e2e_phase(torch, smi)
     decoded = e2e.pop("decoded")
+    torch.cuda.empty_cache()
+    # its fits against the plain version in other summation orders
+    record["lm_order"] = _lm_order_phase(torch, smi)
     torch.cuda.empty_cache()
 
     # ---- 6. the bead-calibration path ---------------------------------------

@@ -19,6 +19,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import DEFAULT_PIXEL_SIZE_NM
 from ..device import resolve_device
 from ..tracing import StageTimes
@@ -78,7 +79,10 @@ class DNAMerfishDecoder:
 
         `stage_seconds` records `tuples` (pair search + select + tuple
         completion) and `homolog` (all per-chromosome E/M assignments),
-        each ending in a device synchronisation.
+        each ending in a device synchronisation.  While the timing record
+        records (``tracing``), a ``decode`` span holds a ``tuples`` and a
+        ``homolog`` span, the candidates and the decoded groups as
+        attributes, and counts the decode's waits on the card.
         """
         spots = np.asarray(spots, np.float32)
         min_needed = (self.num_homologs * self.codebook.matrix.sum()
@@ -86,14 +90,16 @@ class DNAMerfishDecoder:
         if len(spots) < min_needed:
             return None
         times = StageTimes()
-        with times.stage("tuples"):
-            groups = self.decoder.decode(spots, bits, bucket=spot_bucket)
-            self._sync()
-        self.stage_seconds = times.summary()
-        with times.stage("homolog"):
-            out = self._assign_homologs(spots, groups, spot_bucket,
-                                        group_bucket, assign_kwargs)
-            self._sync()
+        with tracing.span(tracing.DECODE, candidates=len(spots)) as span:
+            with times.stage("tuples"), tracing.span("tuples"):
+                groups = self.decoder.decode(spots, bits, bucket=spot_bucket)
+                self._sync()
+            self.stage_seconds = times.summary()
+            with times.stage("homolog"), tracing.span("homolog"):
+                out = self._assign_homologs(spots, groups, spot_bucket,
+                                            group_bucket, assign_kwargs)
+                self._sync()
+            span.set(groups=self.n_groups)
         self.stage_seconds = times.summary()
         self.chr_2_homologs = out
         return out
@@ -108,6 +114,7 @@ class DNAMerfishDecoder:
             spots = np.pad(spots, ((0, spot_bucket
                                     - len(spots) % spot_bucket), (0, 0)))
         ok = _np(groups.ok)
+        self.n_groups = int(ok.sum())
         regions = _np(groups.region)
         spot_idx = _np(groups.spot_idx)
         n_spots = _np(groups.n_spots)

@@ -1,6 +1,7 @@
-"""The port's one timing record: spans inside a round, and the per-stage
-times of ``ExperimentDriver`` and ``DNAMerfishDecoder`` (:class:`StageTimes`,
-kept as dicts on the host clock).
+"""The port's one timing record: spans inside a round and around a field
+of view's decode, and the per-stage times of ``ExperimentDriver`` and
+``DNAMerfishDecoder`` (:class:`StageTimes`, kept as dicts on the host
+clock).
 
 A span records its name, its start and end on the host, the span it sits
 in, the round it belongs to (every span of one ``round`` span shares that
@@ -14,8 +15,9 @@ the profiler, the profiler's per-op cost too), not the device time of the
 span's kernels.  A ``sync`` span marks a point where the host waits for
 the card (a value read, a copy from pageable memory); it records no event.
 
-A recorded ``round`` span also counts the host's waits on the card while
-it is open (attribute ``syncs``): it turns on
+A recorded ``round`` or ``decode`` span (:data:`COUNTED`) also counts the
+host's waits on the card while it is open (attribute ``syncs``): it turns
+on
 ``torch.cuda.set_sync_debug_mode("warn")`` and counts the warning torch
 gives at each synchronising call instead of showing it (it is shown only
 if the mode was on before), and counts as ``unmarked_syncs`` those outside
@@ -25,7 +27,7 @@ holds, under each name of :data:`COUNTERS`, how much that counter
 constants built and copied to their device (``device.device_constant``), 0
 once earlier calls on the same shapes have built them.  The counts cover
 every thread of the process; rounds are recorded from one thread at a
-time.
+time.  A counted span inside another counts its waits for both.
 
 Recording is on while ``torch.profiler`` profiles
 (``torch.autograd._profiler_enabled()``) or inside ``with recording():``.
@@ -41,7 +43,8 @@ wait for the card, and elapsed times are resolved when the record is read
 (:attr:`Span.device_ms` waits for the span's end event).
 
 The record is bounded: the last :data:`MAX_ROUNDS` rounds, each with all
-its spans, and the last :data:`MAX_LOOSE` spans outside any round.
+its spans, and the last :data:`MAX_LOOSE` spans outside any round (a
+``decode`` span and its ``tuples`` and ``homolog`` spans among them).
 """
 
 from __future__ import annotations
@@ -59,14 +62,17 @@ import torch
 
 __all__ = ["Span", "Record", "StageTimes", "span", "sync", "recording",
            "record", "clear", "count", "MAX_ROUNDS", "MAX_LOOSE", "ROUND",
-           "SYNC", "SYNC_WARNING", "COUNTERS"]
+           "DECODE", "SYNC", "SYNC_WARNING", "COUNTERS", "COUNTED"]
 
 #: rounds the record keeps (oldest dropped first)
 MAX_ROUNDS = 64
 #: spans outside any round the record keeps
 MAX_LOOSE = 4096
-#: the span that opens a round, and the span of a host wait
-ROUND, SYNC = "round", "sync"
+#: the span that opens a round, the span around a field of view's decode
+#: and the span of a host wait
+ROUND, DECODE, SYNC = "round", "decode", "sync"
+#: the spans that count the host's waits on the card and the counters
+COUNTED = (ROUND, DECODE)
 #: the text of torch's warning at a synchronising call under
 #: ``torch.cuda.set_sync_debug_mode("warn")``
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -111,6 +117,9 @@ class _NoSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs) -> None:
+        pass
+
 
 _NO_SPAN = _NoSpan()
 
@@ -141,7 +150,10 @@ class _SyncCount:
             stack = _REC.stack()
             if not stack or stack[-1].name != SYNC:
                 self.unmarked += 1
-            if not self._mode:
+            # an enclosing counted span counts it too, and decides whether
+            # it is shown
+            outer = getattr(self._show, "__self__", None)
+            if not self._mode and not isinstance(outer, _SyncCount):
                 return
         self._show(message, category, *args, **kwargs)
 
@@ -175,12 +187,13 @@ class Span:
         stack = _REC.stack()
         parent = stack[-1] if stack else None
         self.parent = parent
+        if self.name in COUNTED:
+            self._syncs = _SyncCount().__enter__()
+            self._counts = dict(_REC.counts)
         if self.name == ROUND:
             self.round = next(_REC.round_ids)
             self._group = []
             _REC.rounds.append(self._group)
-            self._syncs = _SyncCount().__enter__()
-            self._counts = dict(_REC.counts)
         elif parent is not None:
             self.round, self._group = parent.round, parent._group
         if self._group is not None:
@@ -209,6 +222,10 @@ class Span:
             for name, n in _REC.counts.items():
                 self.attrs[name] = n - self._counts[name]
         return False
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only once the span's work has run."""
+        self.attrs.update(attrs)
 
     @property
     def host_ms(self) -> float:
